@@ -1,0 +1,82 @@
+"""Carry state between the JAX package and the port as numpy arrays.
+
+`state_from_numpy` turns a nested NamedTuple of numpy arrays (a JAX state
+after `jax.tree.map(np.asarray, st)`) into the port's state, field by field;
+`state_to_numpy` goes the other way; `config_from_dict` rebuilds the port's
+`SlamConfig` from `dataclasses.asdict` of a JAX config.  Neither side's
+package is imported: the types are matched by their class names.
+
+uint32 words (descriptors, signatures) live in the port as int32 tensors with
+the same bit pattern; `state_to_numpy` returns them as uint32 again for the
+fields listed in `UINT32_FIELDS`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import config as C
+from .ops import features
+from .pipeline import loop, odometry, posegraph
+from .utils import se3
+
+UINT32_FIELDS = frozenset({"desc", "prev_desc", "kf_sig", "kf_feat_desc",
+                           "feat_desc"})
+
+_TYPES = {t.__name__: t for t in (
+    se3.Pose, features.Features, odometry.OdometryState, posegraph.PoseGraph,
+    loop.BackendState)}
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)           # a writable C-ordered copy; keeps 0-d arrays 0-d
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def state_from_numpy(tree, device="cuda"):
+    """Nested NamedTuple of numpy arrays -> the port's NamedTuple of tensors
+    (same class names and fields)."""
+    if hasattr(tree, "_fields"):
+        cls = _TYPES[type(tree).__name__]
+        return cls(**{f: state_from_numpy(getattr(tree, f), device)
+                      for f in tree._fields})
+    if tree is None:
+        return None
+    return _to_tensor(tree, device)
+
+
+def state_to_numpy(state, _name: str = ""):
+    """The port's NamedTuple of tensors -> the same structure of numpy
+    arrays (uint32 words restored for `UINT32_FIELDS`)."""
+    if hasattr(state, "_fields"):
+        return type(state)(**{f: state_to_numpy(getattr(state, f), f)
+                              for f in state._fields})
+    if state is None:
+        return None
+    a = state.detach().cpu().numpy()
+    return a.view(np.uint32) if _name in UINT32_FIELDS else a
+
+
+def _build(cls, d: dict):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if dataclasses.is_dataclass(f.default_factory if f.default_factory
+                                    is not dataclasses.MISSING else None):
+            v = _build(f.default_factory, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def config_from_dict(d: dict) -> C.SlamConfig:
+    """`SlamConfig` from `dataclasses.asdict` of either package's config."""
+    return _build(C.SlamConfig, d)

@@ -1,0 +1,347 @@
+"""Corner detection + binary descriptors + matching on intensity images
+(reference C3).
+
+PyTorch counterpart of `intensity_slam_tpu/ops/features.py`: Shi-Tomasi
+min-eigenvalue corner response, NMS by max-pooling, fixed-size top-K;
+BRIEF-256 descriptors packed into 8 32-bit words; mutual-NN Hamming matching
+with the reference's keep-top-fraction rule
+(`src/intensity_feature_tracker.cpp:609-692`).
+
+Port notes:
+- Descriptors are stored as int32 words holding the same bit pattern as the
+  JAX package's uint32 words (torch has little uint32 arithmetic): bit i of
+  word w is sample 32*w+i.  Compare across packages via `.view(np.uint32)`.
+- torch has no popcount: `popcount32` is a SWAR count on the two 16-bit
+  halves of each word, in int32 arithmetic that cannot overflow.
+- `lax.top_k` and `jnp.argsort` put ties in index order; here a stable sort
+  does the same.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from ..config import FeatureConfig
+from . import conv2d
+from .projection import ScanImage
+
+_PATTERN_BITS = 256
+_PATCH_X = 15  # half-extent in azimuth (cols)
+_PATCH_Y = 6   # half-extent in elevation (rows) — vertical detection border
+
+
+def _make_pattern(seed: int = 1234) -> np.ndarray:
+    """The fixed BRIEF sampling pattern, bit for bit the JAX package's."""
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(_PATTERN_BITS, 2, 2)
+    pts[..., 0] = np.clip(pts[..., 0] * (_PATCH_X / 2.5), -_PATCH_X, _PATCH_X)
+    pts[..., 1] = np.clip(pts[..., 1] * (_PATCH_Y / 2.5), -_PATCH_Y, _PATCH_Y)
+    return pts.astype(np.float32)
+
+
+_PATTERN = _make_pattern()                                  # (256, 2, 2) [pair, endpoint, (dx,dy)]
+_PATTERN_INT = np.round(_PATTERN).astype(np.int64)          # (256, 2, 2)
+
+
+class Features(NamedTuple):
+    uv: torch.Tensor        # (K, 2) int32 — (col, row) like cv::KeyPoint.pt
+    score: torch.Tensor     # (K,) float32 corner response
+    angle: torch.Tensor     # (K,) float32 orientation (rad)
+    desc: torch.Tensor      # (K, 8) int32 words — 256-bit binary descriptor
+    valid: torch.Tensor     # (K,) bool
+    xyz: torch.Tensor       # (K, 3) float32 lifted 3D points (sensor frame)
+    xyz_valid: torch.Tensor # (K,) bool — valid AND non-zero 3D lookup
+
+
+class Matches(NamedTuple):
+    src_idx: torch.Tensor   # (M,) int32 into previous-frame features
+    dst_idx: torch.Tensor   # (M,) int32 into current-frame features
+    dist: torch.Tensor      # (M,) float32 Hamming distance
+    valid: torch.Tensor     # (M,) bool
+    num_mutual: torch.Tensor  # () int32 — mutual NN count before the keep-frac cut
+    num_good: torch.Tensor    # () int32 — matches surviving all gates
+
+
+def _box_blur(img: torch.Tensor, k: int = 5) -> torch.Tensor:
+    return conv2d.box_filter(img, k)
+
+
+def corner_response(img: torch.Tensor, window: int = 5) -> torch.Tensor:
+    """Shi-Tomasi min-eigenvalue response of the structure tensor."""
+    gx, gy = conv2d.sobel(img)
+    a, b, c = conv2d.box_filter(torch.stack([gx * gx, gx * gy, gy * gy]),
+                                window)
+    tr2 = (a + c) * 0.5
+    det = torch.sqrt(torch.clamp(((a - c) * 0.5) ** 2 + b * b, min=0.0))
+    return tr2 - det
+
+
+def _maxpool2d(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(2r+1)^2 max filter, -inf outside the image (reduce_window "SAME")."""
+    return Fn.max_pool2d(x[None, None], 2 * r + 1, stride=1, padding=r)[0, 0]
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lax.top_k` semantics on a 1-D tensor: descending, ties lowest index
+    first."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def detect(
+    img: torch.Tensor,
+    detect_mask: torch.Tensor,
+    num_features: int,
+    nms_radius: int = 2,
+    min_score: float = 1.0,
+):
+    """Top-K corners: returns (uv (K,2) int32, uv_sub (K,2) f32 subpixel,
+    score (K,), valid (K,))."""
+    H, W = img.shape
+    resp_raw = corner_response(img)
+    row = torch.arange(H, device=img.device)[:, None]
+    border_ok = (row >= _PATCH_Y) & (row < H - _PATCH_Y)
+    resp = torch.where(detect_mask & border_ok, resp_raw, -torch.inf)
+    keep = resp >= _maxpool2d(resp, nms_radius)  # NMS
+    resp = torch.where(keep, resp, -torch.inf)
+    score, flat_idx = top_k(resp.reshape(-1), num_features)
+    uv = torch.stack([flat_idx % W, flat_idx // W], dim=-1).to(torch.int32)
+    valid = score > min_score
+    uv_sub = _refine_subpixel(resp_raw, uv)
+    return uv, uv_sub, score, valid
+
+
+def _refine_subpixel(resp: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Quadratic sub-pixel refinement of response peaks (2x2 Newton step on
+    the local quadratic model); offsets clamped to half a pixel."""
+    H, W = resp.shape
+    u, v = uv[:, 0].long(), uv[:, 1].long()
+
+    def at(du, dv):
+        return resp[torch.clamp(v + dv, 0, H - 1), (u + du) % W]
+
+    c = at(0, 0)
+    dx = (at(1, 0) - at(-1, 0)) * 0.5
+    dy = (at(0, 1) - at(0, -1)) * 0.5
+    dxx = at(1, 0) + at(-1, 0) - 2 * c
+    dyy = at(0, 1) + at(0, -1) - 2 * c
+    dxy = (at(1, 1) - at(1, -1) - at(-1, 1) + at(-1, -1)) * 0.25
+    det = dxx * dyy - dxy * dxy
+    safe = torch.abs(det) > 1e-9
+    det = torch.where(safe, det, 1.0)
+    ox = -(dyy * dx - dxy * dy) / det
+    oy = -(dxx * dy - dxy * dx) / det
+    ok = safe & (torch.abs(ox) <= 0.5) & (torch.abs(oy) <= 0.5)
+    ox = torch.where(ok, ox, 0.0)
+    oy = torch.where(ok, oy, 0.0)
+    return torch.stack([u.float() + ox, v.float() + oy], dim=-1)
+
+
+def _bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample with azimuth wrap in x and clamp in y."""
+    H, W = img.shape
+    x0 = torch.floor(x).long()
+    y0 = torch.clamp(torch.floor(y).long(), 0, H - 2)
+    fx, fy = x - x0.float(), y - y0.float()
+    x0m, x1m = x0 % W, (x0 + 1) % W
+    v00 = img[y0, x0m]
+    v01 = img[y0, x1m]
+    v10 = img[y0 + 1, x0m]
+    v11 = img[y0 + 1, x1m]
+    return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(K, 256) bool -> (K, 8) int32 words; bit i of word w is sample 32*w+i."""
+    K = bits.shape[0]
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    words = torch.sum(bits.reshape(K, 8, 32).long() << shifts, dim=-1)
+    # words are in [0, 2^32): reinterpret the low 32 bits as int32
+    return torch.where(words >= (1 << 31), words - (1 << 32), words).to(torch.int32)
+
+
+_DX_ROW = np.arange(-_PATCH_X, _PATCH_X + 1, dtype=np.float32)
+_DY_COL = np.arange(-_PATCH_Y, _PATCH_Y + 1, dtype=np.float32)
+_ONES_ROW = np.ones(2 * _PATCH_X + 1, np.float32)
+_ONES_COL = np.ones(2 * _PATCH_Y + 1, np.float32)
+
+
+def describe(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Oriented BRIEF-256 for K keypoints: returns (desc (K,8) int32 words,
+    angle (K,)).  Orientation by intensity centroid over a rectangular patch;
+    rotated offsets round to integer pixels of the blurred image."""
+    H, W = img.shape
+    blurred = _box_blur(img, 5)
+    ul, vl = uv[:, 0].long(), uv[:, 1].long()
+    u, v = ul.float(), vl.float()
+    m10 = conv2d.sep_filter(blurred, _ONES_COL, _DX_ROW)
+    m01 = conv2d.sep_filter(blurred, _DY_COL, _ONES_ROW)
+    angle = torch.atan2(m01[vl, ul], m10[vl, ul])
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    pat = torch.as_tensor(_PATTERN, device=img.device)
+    px = pat[None, :, :, 0]
+    py = pat[None, :, :, 1]
+    rx = ca[:, None, None] * px - sa[:, None, None] * py + u[:, None, None]
+    ry = sa[:, None, None] * px + ca[:, None, None] * py + v[:, None, None]
+    xi = torch.round(rx).long() % W
+    yi = torch.clamp(torch.round(ry).long(), 0, H - 1)
+    samples = blurred.reshape(-1)[yi * W + xi]               # (K, 256, 2)
+    bits = samples[:, :, 0] < samples[:, :, 1]
+    return _pack_bits(bits), angle
+
+
+def describe_dense(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Unrotated BRIEF-256 (the JAX package's dense bit planes): bit p of a
+    keypoint at (u, v) is blur[v+dy1, u+dx1] < blur[v+dy2, u+dx2] with both
+    axes wrapped, exactly what the rolled-plane read gives at (v, u).  Only
+    the K keypoints' 256 pairs are sampled.  Returns (K, 8) int32 words."""
+    H, W = img.shape
+    blur = _box_blur(img, 5)
+    pat = torch.as_tensor(_PATTERN_INT, device=img.device)   # (256, 2, 2)
+    u = uv[:, 0].long()[:, None, None]
+    v = uv[:, 1].long()[:, None, None]
+    xi = (u + pat[None, :, :, 0]) % W
+    yi = (v + pat[None, :, :, 1]) % H
+    samples = blur.reshape(-1)[yi * W + xi]                  # (K, 256, 2)
+    return _pack_bits(samples[:, :, 0] < samples[:, :, 1])
+
+
+def lift_subpixel(scan: ScanImage, uv_int: torch.Tensor, uv_sub: torch.Tensor):
+    """3D lift at sub-pixel positions, guarded against depth discontinuities:
+    the 4 neighbor ranges must agree with the center range within 2% + 5 cm,
+    else fall back to the integer pixel's point
+    (`intensity_feature_tracker.cpp:1082`)."""
+    H, W = scan.range.shape
+    x, y = uv_sub[:, 0], uv_sub[:, 1]
+    x0 = torch.floor(x).long()
+    y0 = torch.clamp(torch.floor(y).long(), 0, H - 2)
+    ui, vi = uv_int[:, 0].long(), uv_int[:, 1].long()
+    r_c = scan.range[vi, ui]
+
+    def rng(dy, dx):
+        return scan.range[y0 + dy, (x0 + dx) % W]
+
+    tol = 0.02 * r_c + 0.05
+    same_surf = (
+        (torch.abs(rng(0, 0) - r_c) < tol) & (torch.abs(rng(0, 1) - r_c) < tol)
+        & (torch.abs(rng(1, 0) - r_c) < tol) & (torch.abs(rng(1, 1) - r_c) < tol)
+    )
+    xyz_b = torch.stack([_bilinear(scan.xyz[:, :, ch], x, y) for ch in range(3)],
+                        dim=1)
+    xyz_i = scan.xyz[vi, ui]
+    return torch.where(same_surf[:, None], xyz_b, xyz_i)
+
+
+def depth_stable_mask(scan: ScanImage, rel: float = 0.1,
+                      abs_m: float = 0.5) -> torch.Tensor:
+    """(H, W) bool: pixels NOT on an occlusion/depth discontinuity (see the
+    JAX package's docstring for the three criteria): no valid 4-neighbor
+    range jump above `abs_m + rel * range` within 3 px, under 15 % invalid
+    pixels in the 7x7 support, and the center pixel valid."""
+    r = scan.range
+    v = scan.valid
+    H = r.shape[0]
+    dev = r.device
+    up = torch.clamp(torch.arange(H, device=dev) - 1, 0, H - 1)
+    down = torch.clamp(torch.arange(H, device=dev) + 1, 0, H - 1)
+
+    def nbrs(a):
+        return [a[up], a[down], torch.roll(a, 1, dims=1), torch.roll(a, -1, dims=1)]
+
+    jump = torch.stack([
+        torch.where(nv, torch.abs(r - n), 0.0) for n, nv in zip(nbrs(r), nbrs(v))
+    ]).amax(dim=0)
+    bad = v & (jump >= abs_m + rel * r)
+    near_bad = _maxpool2d(torch.where(bad, 1.0, 0.0), 3) > 0.5
+    inv_frac = conv2d.box_filter(torch.where(v, 0.0, 1.0), 7)
+    return v & ~near_bad & (inv_frac < 0.15)
+
+
+def extract(scan: ScanImage, detect_mask: torch.Tensor, cfg: FeatureConfig,
+            num_features: int | None = None) -> Features:
+    """Full per-frame front-end: detect + orient + describe + 3D lift."""
+    K = num_features or cfg.num_features
+    uv, uv_sub, score, valid = detect(
+        scan.intensity, detect_mask & depth_stable_mask(scan), K,
+        cfg.nms_radius)
+    if cfg.oriented:
+        desc, angle = describe(scan.intensity, uv)
+    else:
+        desc = describe_dense(scan.intensity, uv)
+        angle = torch.zeros(K, dtype=torch.float32, device=uv.device)
+    xyz = lift_subpixel(scan, uv, uv_sub)
+    # near-zero filter (`extractPointsAndFilterZeroValue`,
+    # intensity_feature_tracker.cpp:1071-1099)
+    xyz_valid = valid & scan.valid[uv[:, 1].long(), uv[:, 0].long()]
+    return Features(uv, score, angle, desc, valid, xyz, xyz_valid)
+
+
+def _popcount16(v: torch.Tensor) -> torch.Tensor:
+    v = v - ((v >> 1) & 0x5555)
+    v = (v & 0x3333) + ((v >> 2) & 0x3333)
+    v = (v + (v >> 4)) & 0x0F0F
+    return (v + (v >> 8)) & 0x1F
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its 32-bit pattern), as int32."""
+    return _popcount16(x & 0xFFFF) + _popcount16((x >> 16) & 0xFFFF)
+
+
+def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(Ka, 8) x (Kb, 8) int32 words -> (Ka, Kb) int32 Hamming distances,
+    summed word by word so the transient stays (Ka, Kb)."""
+    h = popcount32(torch.bitwise_xor(da[:, None, 0], db[None, :, 0]))
+    for w in range(1, 8):
+        h = h + popcount32(torch.bitwise_xor(da[:, None, w], db[None, :, w]))
+    return h
+
+
+def match_retry(
+    fa_desc: torch.Tensor, fa_valid: torch.Tensor,
+    fb_desc: torch.Tensor, fb_valid: torch.Tensor,
+    keep_frac: float,
+    keep_frac_retry: float,
+    min_good: int,
+    max_hamming: int = 64,
+) -> Matches:
+    """Mutual-NN Hamming matching (BFMatcher crossCheck) with the reference's
+    keep-top-fraction rule and its failure re-detect contract in one matrix
+    pass (`intensity_feature_tracker.cpp:631-692`): when the first cut keeps
+    fewer than `min_good` matches, the looser `keep_frac_retry` cut applies."""
+    BIG = 1 << 20
+    d = hamming_matrix(fa_desc, fb_desc)
+    ok = fa_valid[:, None] & fb_valid[None, :]
+    d = torch.where(ok, d, BIG)
+    best_b = torch.argmin(d, dim=1)
+    best_a = torch.argmin(d, dim=0)
+    Ka = fa_desc.shape[0]
+    ia = torch.arange(Ka, device=d.device)
+    mutual = best_a[best_b] == ia
+    dist = d[ia, best_b]
+    cand = mutual & (dist < max_hamming)
+    num_mutual = torch.sum(cand, dtype=torch.int32)
+
+    sort_key = torch.where(cand, dist, BIG)
+    order = torch.argsort(sort_key, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = ia
+    nm = num_mutual.float()
+    keep_n1 = torch.ceil(nm * keep_frac).to(torch.int32)
+    num_good1 = torch.sum(cand & (rank < keep_n1))
+    first_bad = num_good1 < min_good
+    keep_n = torch.where(
+        first_bad, torch.ceil(nm * keep_frac_retry).to(torch.int32), keep_n1)
+    good = cand & (rank < keep_n)
+    return Matches(
+        src_idx=ia.to(torch.int32),
+        dst_idx=best_b.to(torch.int32),
+        dist=dist.float(),
+        valid=good,
+        num_mutual=num_mutual,
+        num_good=torch.sum(good, dtype=torch.int32),
+    )

@@ -1,0 +1,185 @@
+"""Robust Gauss-Newton / Levenberg-Marquardt on SE(3).
+
+PyTorch counterpart of `intensity_slam_tpu/ops/solver.py` (the Ceres
+replacement of the reference, `src/intensity_feature_tracker.cpp:880-928`):
+each iteration evaluates all residuals and their Jacobians w.r.t. the
+6-dim right tangent, reduces the 6x6 normal equations and solves on the
+device.
+Robustification is IRLS (Huber/Cauchy weights per residual block).
+
+The JAX package's `lax.while_loop` becomes a Python loop whose condition is
+read on the host once per iteration, so the solve stops on the same iteration
+as the reference.  A residual function may carry its analytic Jacobian as a
+`jacobian(pose)` attribute (`point_to_point` does); any other residual
+function is differentiated with `torch.func.jacfwd`.  Only the point-to-point
+residual is ported so far; the other residual builders belong to the
+geometric fallback and scan-to-map.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+from torch.func import jacfwd
+
+from ..utils import se3
+from ..utils.se3 import Pose
+
+# residual_fn(pose) -> (res [G, D], weight [G]) ; weight 0 masks padding rows.
+ResidualFn = Callable[[Pose], tuple[torch.Tensor, torch.Tensor]]
+
+
+class SolveResult(NamedTuple):
+    pose: Pose
+    final_cost: torch.Tensor     # () robust cost
+    initial_cost: torch.Tensor
+    iterations: torch.Tensor     # () int32
+    converged: torch.Tensor      # () bool — gradient norm below tol at exit
+    min_hessian_eig: torch.Tensor  # () smallest eigenvalue of J^T W J at the
+    # solution — the degeneracy signal (LOAM's eigen check)
+
+
+def huber_weight(sq_norm: torch.Tensor, delta: float) -> torch.Tensor:
+    """IRLS weight for Huber loss on the residual-block norm (Ceres
+    HuberLoss semantics: rho(s)=s for s<=d^2 else 2 d sqrt(s) - d^2)."""
+    norm = torch.sqrt(torch.clamp(sq_norm, min=1e-18))
+    return torch.where(norm <= delta, 1.0, delta / norm)
+
+
+def cauchy_weight(sq_norm: torch.Tensor, c: float) -> torch.Tensor:
+    """IRLS weight for Ceres CauchyLoss(c): rho(s)=c^2 log(1+s/c^2)."""
+    return 1.0 / (1.0 + sq_norm / (c * c))
+
+
+def robust_cost(res: torch.Tensor, w: torch.Tensor, kind: str,
+                scale: float) -> torch.Tensor:
+    sq = torch.sum(res * res, dim=-1)
+    if kind == "huber":
+        d = scale
+        rho = torch.where(sq <= d * d, sq,
+                          2.0 * d * torch.sqrt(torch.clamp(sq, min=1e-18)) - d * d)
+    elif kind == "cauchy":
+        rho = scale * scale * torch.log1p(sq / (scale * scale))
+    else:
+        rho = sq
+    return 0.5 * torch.sum(rho * w)
+
+
+def solve_pose(
+    pose0: Pose,
+    residual_fn: ResidualFn,
+    iters: int = 20,
+    robust: str = "huber",
+    robust_scale: float = 0.1,
+    lm_lambda0: float = 1e-4,
+    use_lm: bool = True,
+    grad_tol: float = 1e-8,
+) -> SolveResult:
+    """Minimize sum_g w_g rho(||r_g(pose)||^2) over SE(3).
+
+    `residual_fn` must keep fixed shapes; its weight output masks padding AND
+    can encode per-block sqrt-information scaling.  Its optional
+    `jacobian(pose)` attribute returns the (G, D, 6) Jacobian w.r.t. the
+    right tangent at 0.  One host read per iteration (the loop condition)."""
+
+    def cost_of(p: Pose) -> torch.Tensor:
+        r, w = residual_fn(p)
+        return robust_cost(r, w, robust, robust_scale)
+
+    jacobian = getattr(residual_fn, "jacobian", None)
+
+    def linearize(p: Pose):
+        r0, w = residual_fn(p)                       # (G, D), (G,)
+        if jacobian is not None:
+            J = jacobian(p)                          # (G, D, 6)
+        else:
+            J = jacfwd(lambda xi: residual_fn(se3.retract(p, xi))[0])(
+                torch.zeros(6, dtype=r0.dtype, device=r0.device))
+        sq = torch.sum(r0 * r0, dim=-1)
+        if robust == "huber":
+            rw = huber_weight(sq, robust_scale)
+        elif robust == "cauchy":
+            rw = cauchy_weight(sq, robust_scale)
+        else:
+            rw = torch.ones_like(sq)
+        wt = w * rw
+        H = torch.einsum("gdi,gdj,g->ij", J, J, wt)
+        b = torch.einsum("gdi,gd,g->i", J, r0, wt)
+        return H, b
+
+    dev = pose0.q.device
+    eye6 = torch.eye(6, device=dev)
+    c0 = cost_of(pose0)
+    tol = grad_tol * torch.clamp(c0, min=1.0)
+    FTOL = 1e-6  # Ceres' function_tolerance default
+    MAX_CONSECUTIVE_REJECT = 3  # at the optimum every LM step is rejected
+
+    pose, cost = pose0, c0
+    lam = torch.tensor(lm_lambda0, dtype=c0.dtype, device=dev)
+    gnorm = torch.tensor(torch.inf, dtype=c0.dtype, device=dev)
+    rel = torch.tensor(torch.inf, dtype=c0.dtype, device=dev)
+    rej = torch.zeros((), dtype=torch.int32, device=dev)
+    k = 0
+    # early exit on gradient tolerance, tiny accepted relative cost decrease
+    # (Ceres' gradient_tolerance / function_tolerance), or repeated step
+    # rejection (Ceres: min_trust_region_radius)
+    while k < iters and bool((gnorm > tol) & (torch.abs(rel) > FTOL)
+                             & (rej < MAX_CONSECUTIVE_REJECT)):
+        H, b = linearize(pose)
+        # damping: LM diag scaling PLUS an absolute Tikhonov floor (keeps
+        # null-space steps ~0 when the problem has a gauge direction)
+        diag = torch.diagonal(H)
+        floor = 1e-6 * torch.clamp(torch.max(diag), min=1.0)
+        damped = H + eye6 * (lam * torch.clamp(diag, min=1e-8) + floor)
+        delta = -torch.linalg.solve_ex(damped, b)[0]
+        # trust region: clip pose increments beyond ~1 rad / 1 m
+        dn = torch.sqrt(torch.sum(delta * delta))
+        delta = delta * torch.clamp(1.0 / torch.clamp(dn, min=1e-12), max=1.0)
+        cand = se3.retract(pose, delta)
+        new_cost = cost_of(cand)
+        prev_cost = cost
+        if use_lm:
+            accept = new_cost < cost
+            pose = se3.pose_where(accept, cand, pose)
+            cost = torch.where(accept, new_cost, cost)
+            lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                              torch.clamp(lam * 4.0, max=1e6))
+            # a rejected step keeps rel at +inf so lambda grows and retries
+            rel = torch.where(accept, (prev_cost - new_cost)
+                              / torch.clamp(prev_cost, min=1e-12), torch.inf)
+            rej = torch.where(accept, 0, rej + 1).to(torch.int32)
+        else:
+            pose, cost = cand, new_cost
+            rel = (prev_cost - new_cost) / torch.clamp(prev_cost, min=1e-12)
+        gnorm = torch.sqrt(torch.sum(b * b))
+        k += 1
+    H_final, _ = linearize(pose)
+    min_eig = torch.linalg.eigvalsh(H_final)[0]
+    return SolveResult(
+        pose=pose,
+        final_cost=cost,
+        initial_cost=c0,
+        iterations=torch.tensor(k, dtype=torch.int32, device=dev),
+        converged=gnorm < tol,
+        min_hessian_eig=min_eig,
+    )
+
+
+def point_to_point(src: torch.Tensor, dst: torch.Tensor,
+                   w: torch.Tensor) -> ResidualFn:
+    """`front_end_residual` (`lidarFeaturePointsFunction.hpp:21-58`):
+    r = R src + t - dst, 3-dim blocks.  Carries its Jacobian w.r.t. the
+    right tangent at 0, [-R [src]x, R] — what `jax.jacfwd` evaluates in the
+    JAX package, without forward-mode AD's per-op cost."""
+
+    def fn(p: Pose):
+        r = se3.quat_rotate(p.q[None, :], src) + p.t[None, :] - dst
+        return r, w
+
+    def jacobian(p: Pose):
+        R = se3.quat_to_mat(p.q)
+        return torch.cat([-R @ se3.skew(src), R.expand(src.shape[0], 3, 3)], dim=-1)
+
+    fn.jacobian = jacobian
+    return fn
