@@ -6,34 +6,52 @@ NVIDIA GPU.
 
 Phases (any failure exits non-zero before the result lines are printed):
 
-1. build: compile the CUDA nearest-neighbour kernel (`csrc/nn.cu`) from the
+1. build: compile the CUDA nearest-neighbour kernels (`csrc/nn.cu`) from the
    checkout and print nvcc's register/shared-memory report and build time;
-2. kernel: hold the kernel against its plain PyTorch version at the ICP
-   shapes (P = 2048 sources, M = 6144 targets) on three input sets — random
-   clouds with duplicated targets and a partial mask, an all-masked target
-   with a ragged P, and real keyframe clouds from `voxel_downsample` of
-   rendered scans — indices and distances must be identical; then time the
-   kernel, the plain version and `torch.cdist(...).min(1)` (a yardstick the
-   port never calls) with CUDA events;
+2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
+   their plain PyTorch versions at the ICP shapes (P = 2048 sources,
+   M = 6144 targets) on three input sets — random clouds with duplicated
+   targets and a partial mask, an all-masked target with a ragged P, and
+   real keyframe clouds from `voxel_downsample` of rendered scans — through
+   the unpacked entry (pack + search) and the packed one (pack once, search
+   on fresh sources): packs, indices and distances must be identical.  Then
+   time, with CUDA events: the search, 33 back-to-back searches on fresh
+   sources, the pack, an empty kernel through the same ctypes route (the
+   launch floor), the plain versions and `torch.cdist(...).min(1)` (a
+   yardstick the port never calls); and the search's device-side duration
+   with `torch.profiler`;
 3. small: the slice at small_test_config on the CPU and on the card from the
    same scans — the same keyframes, skips and loop decisions;
-4. slice: the slice at full width — SlamConfig() defaults (64x1024 scans,
+4. fallback: `slam_step` at full width (SlamConfig() defaults) over an
+   8-frame corridor rendered on the card with the intensity set to a
+   constant, so that the intensity stream skips every frame and the
+   geometric fallback carries the pose: every frame must skip, the end
+   position must lie within 0.35 m of the rendered trajectory, ground must
+   be ok, and the same sequence at small_test_config must take the same
+   decisions on the CPU and on the card;
+5. slice: the slice at full width — SlamConfig() defaults (64x1024 scans,
    1024 features, 2048-point keyframe clouds, 1024 keyframes, so each PGO
    solve is the dense 6144-dim one) with only the two recency exclusions
    shortened for a 38-frame sequence — over the out-and-back of
-   tests/test_loop_closure.py rendered on the card.  The kernel must
-   launch on this path (33 launches per ICP verification).
+   tests/test_loop_closure.py rendered on the card.  Both kernels must
+   launch on this path (1 pack and 33 searches per ICP verification).
 
 The slice is the composition of `intensity_slam_tpu/pipeline/fused.py:159-168`
-minus scan-to-map: intensity odometry every frame, `loop.backend_step` on
-every keyframe with the integrated odometry pose as the mapping pose.
+minus scan-to-map: `slam_step` every frame (intensity odometry, curvature
+features, geometric fallback on a skipped frame, mux, ground RANSAC),
+`loop.backend_step` on every keyframe with the merged odometry pose as the
+mapping pose.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
+    python3 chip_smoke.py --phase kernel|small|fallback|slice
+
+builds the kernels and runs that one phase alone (no result lines).
+
     python3 chip_smoke.py --profile
 
-builds the kernel and profiles the full-width slice instead: host-clock
+builds the kernels and profiles the full-width slice instead: host-clock
 time per stage (each stage synchronized), then a `torch.profiler` trace of
 the whole sequence with the device's busy share and its top kernels.
 """
@@ -41,6 +59,7 @@ the whole sequence with the device's busy share and its top kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -56,7 +75,7 @@ import torch
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
 from intensity_slam_tpu_torch.ops import pallas_nn, projection, voxel
-from intensity_slam_tpu_torch.pipeline import loop, odometry
+from intensity_slam_tpu_torch.pipeline import loop, odometry, slam
 from intensity_slam_tpu_torch.utils import se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
@@ -114,52 +133,74 @@ def _sync_untracked(device):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def run_slice(cfg, xyz, inten, device, count_syncs=False) -> dict:
-    """Odometry on every frame, the keyframe back-end on every keyframe.
-    The driver reads one device value per frame (the keyframe flag it
-    branches on); every other output is read after the sequence."""
-    device = torch.device(device)
-    mask = projection.detection_mask(cfg.sensor, device=device)
-    odo = odometry.init_state(cfg, device=device)
-    back = loop.init_state(cfg, device=device)
-    frames, kfs, t_odo, t_back = [], [], [], []
+@contextlib.contextmanager
+def sync_counter(enabled: bool):
+    """Count host syncs by call site for the length of the block (CUDA's
+    sync debug mode warns on each one); yields a Counter filled on exit."""
+    sites = collections.Counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        if count_syncs:
+        if enabled:
             torch.cuda.set_sync_debug_mode("warn")
         try:
-            for k in range(xyz.shape[0]):
-                _sync_untracked(device)
-                t0 = time.perf_counter()
-                scan = projection.project_organized(xyz[k], inten[k], cfg.sensor)
-                odo, out = odometry.odometry_step(odo, scan, k * 0.1, mask, cfg)
-                is_kf = bool(out.is_keyframe)
-                _sync_untracked(device)
-                t_odo.append(time.perf_counter() - t0)
-                frames.append((out.skip, is_kf))
-                if not is_kf:
-                    continue
-                f = out.features
-                t0 = time.perf_counter()
-                valid = torch.sqrt(torch.sum(xyz[k] * xyz[k], -1)) >= cfg.sensor.min_range
-                back, bout = loop.backend_step(
-                    back, xyz[k], valid, f.desc, f.valid & f.xyz_valid, out.pose,
-                    k * 0.1, cfg, feat_xyz=f.xyz, scan_int=inten[k])
-                _sync_untracked(device)
-                t_back.append(time.perf_counter() - t0)
-                kfs.append((k, bout))
+            yield sites
         finally:
-            if count_syncs:
+            if enabled:
                 torch.cuda.set_sync_debug_mode(0)
-    sync_sites = collections.Counter(
-        f"{os.path.basename(w.filename)}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message))
-    frames = [(bool(skip), is_kf) for skip, is_kf in frames]
-    kfs = [dict(kf=i, frame=k, candidate=bool(b.sc_found),
-                accepted=bool(b.loop_found), loop_idx=int(b.loop_idx),
-                fitness=float(b.icp_fitness)) for i, (k, b) in enumerate(kfs)]
-    return dict(frames=frames, kfs=kfs, back=back, t_odo=t_odo, t_back=t_back,
-                syncs=sum(sync_sites.values()), sync_sites=sync_sites)
+    sites.update(f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message))
+
+
+def run_slam(cfg, xyz, inten, device, count_syncs=False, on_keyframe=None) -> dict:
+    """`slam_step` over a sequence, with `on_keyframe(k, out)` called on
+    every keyframe.  The step reads one device value set per frame (skip,
+    has_prev and the keyframe flag, together); every other output is read
+    after the sequence."""
+    device = torch.device(device)
+    mask = projection.detection_mask(cfg.sensor, device=device)
+    st = slam.init_state(cfg, seed=0, device=device)
+    outs, t_step = [], []
+    with sync_counter(count_syncs) as sync_sites:
+        for k in range(xyz.shape[0]):
+            _sync_untracked(device)
+            t0 = time.perf_counter()
+            st, out = slam.slam_step(st, xyz[k], inten[k], k * 0.1, mask, cfg)
+            _sync_untracked(device)
+            t_step.append(time.perf_counter() - t0)
+            outs.append(out)
+            if on_keyframe is not None and out.host.is_keyframe:
+                on_keyframe(k, out)
+    return dict(
+        frames=[(o.host.skip, o.host.is_keyframe) for o in outs],
+        ground_ok=[bool(o.ground_ok) for o in outs],
+        t=torch.stack([o.odom_pose.t for o in outs]).cpu(),
+        q=torch.stack([o.odom_pose.q for o in outs]).cpu(),
+        t_step=t_step, syncs=sum(sync_sites.values()), sync_sites=sync_sites)
+
+
+def run_slice(cfg, xyz, inten, device, count_syncs=False) -> dict:
+    """`slam_step` on every frame, the keyframe back-end on every keyframe
+    with the merged odometry pose as the mapping pose."""
+    device = torch.device(device)
+    back = [loop.init_state(cfg, device=device)]
+    kfs, t_back = [], []
+
+    def on_keyframe(k, out):
+        t0 = time.perf_counter()
+        valid = torch.sqrt(torch.sum(xyz[k] * xyz[k], -1)) >= cfg.sensor.min_range
+        back[0], bout = loop.backend_step(
+            back[0], xyz[k], valid, out.desc, out.desc_valid, out.pose,
+            k * 0.1, cfg, feat_xyz=out.feat_xyz, scan_int=inten[k])
+        _sync_untracked(device)
+        t_back.append(time.perf_counter() - t0)
+        kfs.append((k, bout))
+
+    r = run_slam(cfg, xyz, inten, device, count_syncs, on_keyframe)
+    r["kfs"] = [dict(kf=i, frame=k, candidate=bool(b.sc_found),
+                     accepted=bool(b.loop_found), loop_idx=int(b.loop_idx),
+                     fitness=float(b.icp_fitness)) for i, (k, b) in enumerate(kfs)]
+    r["back"], r["t_back"] = back[0], t_back
+    return r
 
 
 def time_cuda(fn, reps=50, warmup=5) -> float:
@@ -217,35 +258,127 @@ def kernel_sets(dev, cfg) -> dict:
     return {k: tuple(t.to(dev).contiguous() for t in v) for k, v in sets.items()}
 
 
+def pack_bound_ms(M: int, m_valid: int) -> tuple[float, str]:
+    """Least time for the packing: targets and mask read once, the packed
+    rows and the count written once, over the HBM rate (its operations, one
+    compare and one add per target, are far below that)."""
+    t_bytes = (M * 12 + M * 1 + M * 16 + 4) / PEAK_BYTES_PER_S
+    t_ops = 2 * M / PEAK_FP32_FLOPS
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def time_cuda_batch(fn, n: int, reps=20, warmup=3) -> float:
+    """Median ms per call of `n` back-to-back calls, CUDA events around
+    each batch."""
+    return time_cuda(lambda: [fn(i) for i in range(n)], reps=reps,
+                     warmup=warmup) / n
+
+
+def kernel_device_us(fn, name: str, n: int = 33) -> float:
+    """Median device-side duration in microseconds of the kernel `name`
+    over `n` calls of `fn`, from a `torch.profiler` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type.name == "CUDA" and name in e.name]
+    check(len(durs) >= n, f"the profiler saw {len(durs)} launches of {name}")
+    return statistics.median(durs)
+
+
 def kernel_phase(dev, cfg) -> dict:
+    """Both kernels against their plain versions on three input sets,
+    through the unpacked entry (pack + search) and the packed one (pack
+    once, search on fresh sources), then their times."""
     sets = kernel_sets(dev, cfg)
     max_err = 0.0
     for name, (src, tgt, mask) in sets.items():
-        ki, kd = pallas_nn.nearest_neighbor(src, tgt, mask)
         pi, pd = pallas_nn.nearest_neighbor_plain(src, tgt, mask)
+        ui, ud = pallas_nn.nearest_neighbor(src, tgt, mask)
+        packed = pallas_nn.pack_targets(tgt, mask)
+        plain_pack = pallas_nn.pack_targets_plain(tgt, mask)
+        ki, kd = pallas_nn.nearest_neighbor_packed(src, packed)
+        # a second search on the same pack, on other sources
+        src2 = (src * 0.5 + 0.25).contiguous()
+        ki2, kd2 = pallas_nn.nearest_neighbor_packed(src2, packed)
+        pi2, pd2 = pallas_nn.nearest_neighbor_plain(src2, tgt, mask)
+        qi, qd = pallas_nn.nearest_neighbor_packed_plain(src, plain_pack)
         torch.cuda.synchronize()
-        n_idx = int((ki != pi).sum())
-        err = float((kd - pd).abs().max())
+        pack_same = (torch.equal(packed.count, plain_pack.count)
+                     and torch.equal(packed.data.view(torch.int32),
+                                     plain_pack.data.view(torch.int32)))
+        n_idx = int((ki != pi).sum()) + int((ui != pi).sum()) + int((ki2 != pi2).sum())
+        err = max(float((kd - pd).abs().max()), float((ud - pd).abs().max()),
+                  float((kd2 - pd2).abs().max()))
         print(f"kernel set {name}: P={src.shape[0]} M={tgt.shape[0]} "
-              f"valid_targets={int(mask.sum())} index_mismatches={n_idx} "
-              f"max_abs_dist_err={err}")
-        if n_idx or not torch.equal(kd, pd):
+              f"valid_targets={int(mask.sum())} pack_identical={pack_same} "
+              f"index_mismatches={n_idx} max_abs_dist_err={err}")
+        check(pack_same, f"pack kernel disagrees with its plain version on {name}")
+        same = (torch.equal(kd, pd) and torch.equal(ud, pd) and torch.equal(kd2, pd2)
+                and torch.equal(qi, pi) and torch.equal(qd, pd))
+        if n_idx or not same:
             raise SmokeFailure(f"nn kernel disagrees with its plain version on {name}")
         if name == "all_masked_ragged":
             check(bool((ki == 0).all()) and bool((kd == 1e30).all()),
                   "all-masked targets must give index 0 and distance 1e30")
         max_err = max(max_err, err)
     src, tgt, mask = sets["keyframe_clouds"]
+    m_valid = int(mask.sum())
     tgt_valid = tgt[mask].contiguous()
-    ms = time_cuda(lambda: pallas_nn.nearest_neighbor(src, tgt, mask))
+    packed = pallas_nn.pack_targets(tgt, mask)
+    plain_pack = pallas_nn.pack_targets_plain(tgt, mask)
+    fresh = [(src + 0.01 * i).contiguous() for i in range(33)]
+    floor_ms = time_cuda(lambda: pallas_nn.empty_launch(dev))
+    ms = time_cuda(lambda: pallas_nn.nearest_neighbor_packed(src, packed))
+    unpacked_ms = time_cuda(lambda: pallas_nn.nearest_neighbor(src, tgt, mask))
+    pack_ms = time_cuda(lambda: pallas_nn.pack_targets(tgt, mask))
+    batch_ms = time_cuda_batch(
+        lambda i: pallas_nn.nearest_neighbor_packed(fresh[i], packed), 33)
+    floor_batch_ms = time_cuda_batch(lambda i: pallas_nn.empty_launch(dev), 33)
     plain_ms = time_cuda(lambda: pallas_nn.nearest_neighbor_plain(src, tgt, mask))
+    packed_plain_ms = time_cuda(
+        lambda: pallas_nn.nearest_neighbor_packed_plain(src, plain_pack))
+    pack_plain_ms = time_cuda(lambda: pallas_nn.pack_targets_plain(tgt, mask))
     lib_ms = time_cuda(lambda: torch.cdist(src, tgt_valid).min(dim=1))
-    bound, bound_by = nn_bound_ms(src.shape[0], tgt.shape[0], int(mask.sum()))
-    print(f"kernel timing (keyframe_clouds, P={src.shape[0]} M={tgt.shape[0]}): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, "
-          f"bound {bound:.5f} ms ({bound_by})")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=bound_by)
+    device_us = kernel_device_us(
+        lambda: pallas_nn.nearest_neighbor_packed(src, packed), "nn_packed_kernel")
+    pack_device_us = kernel_device_us(
+        lambda: pallas_nn.pack_targets(tgt, mask), "pack_kernel")
+    bound, bound_by = nn_bound_ms(src.shape[0], tgt.shape[0], m_valid)
+    pbound, pbound_by = pack_bound_ms(tgt.shape[0], m_valid)
+    print(f"kernel timing (keyframe_clouds, P={src.shape[0]} M={tgt.shape[0]}, "
+          f"{m_valid} valid; CUDA events, median of single calls):")
+    print(f"  nn_packed_kernel {ms:.4f} ms (33 back-to-back launches on fresh "
+          f"sources: {batch_ms:.4f} ms each), unpacked entry (pack + search) "
+          f"{unpacked_ms:.4f} ms, plain {plain_ms:.4f} ms, packed plain "
+          f"{packed_plain_ms:.4f} ms, cdist+min {lib_ms:.4f} ms, "
+          f"bound {bound:.5f} ms ({bound_by}); device-side duration "
+          f"{device_us:.2f} us (torch.profiler, median of 33)")
+    print(f"  pack_kernel {pack_ms:.4f} ms (device-side {pack_device_us:.2f} us), plain (stable argsort) "
+          f"{pack_plain_ms:.4f} ms, bound {pbound:.6f} ms ({pbound_by})")
+    print(f"  launch floor: an empty kernel through the same ctypes route "
+          f"{floor_ms:.4f} ms (33 back to back: {floor_batch_ms:.4f} ms each)")
+    return dict(
+        nn=dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=bound_by, batch_ms=batch_ms,
+                device_ms=device_us / 1e3, floor_ms=floor_ms),
+        pack=dict(max_abs_err=0.0, ms=pack_ms, plain_ms=pack_plain_ms,
+                  library_ms=None, bound_ms=pbound, bound_by=pbound_by,
+                  device_ms=pack_device_us / 1e3, floor_ms=floor_ms))
+
+
+def reset_launches() -> None:
+    pallas_nn.pack_targets.launches = 0
+    pallas_nn.nearest_neighbor_packed.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(nn=pallas_nn.nearest_neighbor_packed.launches,
+                pack=pallas_nn.pack_targets.launches)
 
 
 def decisions(r: dict):
@@ -283,14 +416,14 @@ def slice_phase(dev) -> dict:
     check(xyz.shape == (38, cfg.sensor.num_points, 3), f"rendered {tuple(xyz.shape)}")
     # warm-up: one whole run (library loads, solver and autodiff set-up)
     run_slice(cfg, xyz, inten, dev)
-    pallas_nn.nearest_neighbor.launches = 0
+    reset_launches()
     r = run_slice(cfg, xyz, inten, dev)
-    launches = pallas_nn.nearest_neighbor.launches
+    launches = read_launches()
     # the same path again with every host sync counted (the sync debug
     # mode's warnings slow the host, so this run is not timed)
-    pallas_nn.nearest_neighbor.launches = 0
+    reset_launches()
     rs = run_slice(cfg, xyz, inten, dev, count_syncs=True)
-    check(pallas_nn.nearest_neighbor.launches == launches,
+    check(read_launches() == launches,
           "second run launched the kernel another number of times")
     check(decisions(rs) == decisions(r), "second run took other decisions")
     r["syncs"], r["sync_sites"] = rs["syncs"], rs["sync_sites"]
@@ -300,58 +433,153 @@ def slice_phase(dev) -> dict:
     skips = sum(f[0] for f in r["frames"])
     cands = [k for k in r["kfs"] if k["candidate"]]
     acc = [k for k in r["kfs"] if k["accepted"]]
+    ground_ok = sum(r["ground_ok"])
     print(f"slice (full width): frames {len(r['frames'])}, keyframes {len(r['kfs'])}, "
-          f"skips {skips}")
+          f"skips {skips} at frames {[k for k, f in enumerate(r['frames']) if f[0]]} "
+          f"(frame 0 has no previous frame, so it takes no fallback solve), "
+          f"ground ok {ground_ok}/{len(r['frames'])}")
     for k in cands:
         print(f"  candidate: keyframe {k['kf']} (frame {k['frame']}) -> keyframe "
               f"{k['loop_idx']}, icp fitness {k['fitness']:.6g}, "
               f"{'accepted' if k['accepted'] else 'rejected'}")
     print(f"  candidates {len(cands)}, accepted loops {len(acc)}, "
-          f"num_loops {int(back.graph.num_loops)}, nn kernel launches {launches}")
-    print(f"  median ms per odometry_step {1e3 * statistics.median(r['t_odo']):.3f}, "
+          f"num_loops {int(back.graph.num_loops)}, nn kernel launches {launches['nn']}, pack kernel launches "
+          f"{launches['pack']}")
+    print(f"  median ms per slam_step {1e3 * statistics.median(r['t_step']):.3f}, "
           f"per backend_step {1e3 * statistics.median(r['t_back']):.3f} "
           f"(max {1e3 * max(r['t_back']):.3f}, the accepted-loop keyframe)")
     print(f"  host syncs {r['syncs']} in {len(r['frames'])} frames = "
           f"{r['syncs'] / len(r['frames']):.2f} per frame; by call site:")
-    for site, count in r["sync_sites"].most_common(12):
-        print(f"    {count:5d}  {site}")
+    print_sync_sites(r["sync_sites"])
     print("  (the JAX package on the CPU, on its own renders: 10 keyframes, "
           "1 skip, loop keyframe 7 -> 2 accepted)")
     check(bool(torch.isfinite(poses).all()), "non-finite graph pose")
     check(n == len(r["kfs"]), "graph nodes != keyframes")
-    check(launches >= 33, f"nn kernel launched {launches} times on the slice")
+    check(ground_ok == len(r["frames"]), "ground extraction failed on a frame")
+    check(launches["nn"] >= 33, f"nn kernel launched {launches['nn']} times on the slice")
+    check(launches["pack"] >= 1, "pack kernel was not launched on the slice")
     check(all(k["fitness"] < cfg.loop.icp_fitness_score for k in acc),
           "an accepted loop above the fitness gate")
     return dict(launches=launches)
 
 
-def _stage_timers(stage: dict) -> list:
-    """Wrap the slice's hot callees with synchronized host timers; returns
-    the (module, name, original) list to restore."""
-    targets = [(odometry.F, "extract"), (odometry.F, "match_retry"),
-               (odometry.solver, "solve_pose"), (loop, "voxel_downsample"),
-               (loop.scancontext, "detect_loop"), (loop.bow, "detect_loop"),
-               (loop.icp, "icp_align"), (loop.posegraph, "consistent_loop_mask"),
-               (loop.posegraph, "optimize"), (loop.posegraph, "_edge_jacobians"),
-               (loop.posegraph, "_loop_jacobians"),
-               (loop.posegraph, "_dense_update_multi"),
-               (loop.posegraph, "_frozen_cost")]
+SLAM_STAGES = [(slam.odometry, "odometry_step"),
+               (slam.curvature, "extract_features"),
+               (slam.geometric, "geometric_delta"),
+               (slam.ground, "extract_ground")]
+SLICE_STAGES = SLAM_STAGES + [
+    (odometry.F, "extract"), (odometry.F, "match_retry"),
+    (odometry.solver, "solve_pose"), (loop, "voxel_downsample"),
+    (loop.scancontext, "detect_loop"), (loop.bow, "detect_loop"),
+    (loop.icp, "icp_align"), (loop.posegraph, "consistent_loop_mask"),
+    (loop.posegraph, "optimize"), (loop.posegraph, "_edge_jacobians"),
+    (loop.posegraph, "_loop_jacobians"),
+    (loop.posegraph, "_dense_update_multi"),
+    (loop.posegraph, "_frozen_cost")]
+
+
+@contextlib.contextmanager
+def stage_timers(targets):
+    """Wrap the named callees with synchronized host timers for the length
+    of the block; yields {label: [seconds per call]}."""
+    stage = collections.defaultdict(list)
     saved = []
     for mod, name in targets:
         fn = getattr(mod, name)
         label = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
 
         def timed(*a, _fn=fn, _label=label, **k):
-            torch.cuda.synchronize()
+            _sync_untracked(torch.device("cuda"))
             t0 = time.perf_counter()
             out = _fn(*a, **k)
-            torch.cuda.synchronize()
+            _sync_untracked(torch.device("cuda"))
             stage[_label].append(time.perf_counter() - t0)
             return out
 
         setattr(mod, name, timed)
         saved.append((mod, name, fn))
-    return saved
+    try:
+        yield stage
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def print_stage_rows(rows) -> None:
+    print(f"  {'stage':34s} {'calls':>5s} {'median ms':>10s} {'max ms':>10s} {'total ms':>10s}")
+    for name, ts in rows:
+        print(f"  {name:34s} {len(ts):5d} {1e3 * statistics.median(ts):10.3f} "
+              f"{1e3 * max(ts):10.3f} {1e3 * sum(ts):10.3f}")
+
+
+def print_sync_sites(sites: collections.Counter) -> None:
+    for site, count in sites.most_common():
+        print(f"    {count:5d}  {site}")
+
+
+def forward_trajectory(n: int, speed: float = 0.3) -> se3.Pose:
+    """`n` poses along +x at 0.8 m height, `speed` metres apart."""
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0]).expand(n, 4).clone()
+    t = torch.zeros(n, 3)
+    t[:, 0] = speed * torch.arange(n)
+    t[:, 2] = 0.8
+    return se3.Pose(q, t)
+
+
+def fallback_phase(dev) -> None:
+    """The geometric fallback at full width: constant intensity makes every
+    frame skip, so `geometric_delta` carries the pose."""
+    n = 8
+    traj = forward_trajectory(n)
+    # the same sequence at small_test_config, CPU vs card
+    scfg = config.small_test_config()
+    sx, si = synthetic.render_sequence(traj, synthetic.corridor_world(device="cpu"),
+                                       scfg.sensor)
+    si = torch.full_like(si, 100.0)
+    ref = run_slam(scfg, sx, si, "cpu")
+    got = run_slam(scfg, sx.to(dev), si.to(dev), dev)
+    same = (ref["frames"], ref["ground_ok"]) == (got["frames"], got["ground_ok"])
+    dpos = float((ref["t"] - got["t"]).abs().max())
+    print(f"small fallback: skips {sum(f[0] for f in got['frames'])}/{n}, ground ok "
+          f"{sum(got['ground_ok'])}/{n}, same decisions as the CPU {same}, "
+          f"max |t| diff vs cpu {dpos:.3g} m")
+    check(same, "small fallback run on the card took other decisions than the CPU")
+    check(all(f[0] for f in got["frames"]), "small fallback: a frame did not skip")
+    check(dpos < 0.05, "small fallback: card pose differs from the CPU's")
+
+    cfg = config.SlamConfig()
+    xyz, inten = synthetic.render_sequence(
+        se3.Pose(traj.q.to(dev), traj.t.to(dev)),
+        synthetic.corridor_world(device=dev), cfg.sensor)
+    inten = torch.full_like(inten, 100.0)
+    check(xyz.shape == (n, cfg.sensor.num_points, 3), f"rendered {tuple(xyz.shape)}")
+    run_slam(cfg, xyz, inten, dev)                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    r = run_slam(cfg, xyz, inten, dev)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    with stage_timers(SLAM_STAGES) as stage:
+        run_slam(cfg, xyz, inten, dev)
+    rs = run_slam(cfg, xyz, inten, dev, count_syncs=True)
+    check(rs["frames"] == r["frames"], "fallback: second run took other decisions")
+    gt = traj.t - traj.t[0]
+    end_err = float(torch.sqrt(torch.sum((r["t"][-1] - gt[-1]) ** 2)))
+    step_err = float(torch.sqrt(torch.sum((r["t"] - gt) ** 2, -1)).max())
+    print(f"fallback (full width, {n} frames, constant intensity): skips "
+          f"{sum(f[0] for f in r['frames'])}/{n}, ground ok {sum(r['ground_ok'])}/{n}, "
+          f"end position error {end_err:.4f} m (largest over the frames "
+          f"{step_err:.4f} m), peak device memory {peak_mb:.0f} MiB")
+    print(f"  median ms per slam_step {1e3 * statistics.median(r['t_step']):.3f} "
+          f"(frames 1..{n - 1}, which run the fallback solve: "
+          f"{1e3 * statistics.median(r['t_step'][1:]):.3f}); each stage synchronized:")
+    print_stage_rows(sorted(stage.items(), key=lambda kv: -sum(kv[1])))
+    print(f"  host syncs {rs['syncs']} in {n} frames = {rs['syncs'] / n:.2f} per "
+          f"frame; by call site:")
+    print_sync_sites(rs["sync_sites"])
+    check(all(f[0] for f in r["frames"]), "fallback: a frame did not skip")
+    check(all(r["ground_ok"]), "fallback: ground extraction failed on a frame")
+    check(bool(torch.isfinite(r["t"]).all() and torch.isfinite(r["q"]).all()),
+          "fallback: non-finite pose")
+    check(end_err < 0.35, f"fallback lost track: end position error {end_err:.3f} m")
 
 
 def profile_phase(dev) -> None:
@@ -361,21 +589,12 @@ def profile_phase(dev) -> None:
         se3.Pose(traj.q.to(dev), traj.t.to(dev)),
         synthetic.corridor_world(device=dev), cfg.sensor)
     run_slice(cfg, xyz, inten, dev)               # warm-up, as in slice_phase
-    stage = collections.defaultdict(list)
-    saved = _stage_timers(stage)
-    try:
+    with stage_timers(SLICE_STAGES) as stage:
         r = run_slice(cfg, xyz, inten, dev)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
     print(f"stage times, full-width slice ({len(r['frames'])} frames, "
           f"{len(r['kfs'])} keyframes; each stage synchronized):")
-    print(f"  {'stage':34s} {'calls':>5s} {'median ms':>10s} {'max ms':>10s} {'total ms':>10s}")
-    rows = [("odometry_step", r["t_odo"]), ("backend_step", r["t_back"])]
-    rows += sorted(stage.items(), key=lambda kv: -sum(kv[1]))
-    for name, ts in rows:
-        print(f"  {name:34s} {len(ts):5d} {1e3 * statistics.median(ts):10.3f} "
-              f"{1e3 * max(ts):10.3f} {1e3 * sum(ts):10.3f}")
+    rows = [("slam_step", r["t_step"]), ("backend_step", r["t_back"])]
+    print_stage_rows(rows + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -404,42 +623,58 @@ def profile_phase(dev) -> None:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
 
 
+KERNELS = (
+    ("nn", "nn_packed_kernel"),
+    ("pack", "pack_kernel"),
+)
+
+
+def kernel_records(kern: dict, launches: dict) -> dict:
+    return {"kernels": [{
+        "name": name,
+        "route": "cuda",
+        "source": "intensity_slam_tpu_torch/csrc/nn.cu",
+        "replaces": "intensity_slam_tpu/ops/pallas_nn.py:103",
+        "launches": launches[key],
+        **kern[key],
+        "passed": True,
+    } for key, name in KERNELS]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    only = args[args.index("--phase") + 1] if "--phase" in args else None
     dev = torch.device("cuda", 0)
     print(gpu_name_and_power())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     report = pallas_nn.build(verbose=True)
-    print(f"nn kernel build: {time.perf_counter() - t0:.1f} s")
+    print(f"nn kernels build: {time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "smem" in line.lower() or "error" in line.lower():
+        if ("registers" in line or "smem" in line.lower() or "error" in line.lower()
+                or "Compiling entry" in line):
             print("  nvcc:", line.strip())
-    if "--profile" in sys.argv[1:]:
+    if "--profile" in args:
         profile_phase(dev)
         return 0
     cfg = slice_config(config.SlamConfig())
+    if only is not None:
+        # one phase alone (after the build): prints that phase's lines only
+        phases = {"kernel": lambda: kernel_phase(dev, cfg),
+                  "small": lambda: small_phase(dev),
+                  "fallback": lambda: fallback_phase(dev),
+                  "slice": lambda: slice_phase(dev)}
+        phases[only]()
+        return 0
     kern = kernel_phase(dev, cfg)
     small_phase(dev)
+    fallback_phase(dev)
     sl = slice_phase(dev)
-    record = {"kernels": [{
-        "name": "nn_kernel",
-        "route": "cuda",
-        "source": "intensity_slam_tpu_torch/csrc/nn.cu",
-        "replaces": "intensity_slam_tpu/ops/pallas_nn.py:103",
-        "launches": sl["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"],
-        "passed": True,
-    }]}
-    print(json.dumps(record))
+    print(json.dumps(kernel_records(kern, sl["launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,10 +17,13 @@ Rules the whole package keeps:
   `torch.backends.cuda.matmul.allow_tf32 = False` and
   `torch.backends.cudnn.allow_tf32 = False`.
 
-Ported so far (slice 1): `utils.se3`, `ops.projection`, `ops.conv2d`,
-`ops.features`, `ops.solver`, `ops.grid_hash` (the key mix), `ops.voxel`,
-`ops.scancontext`, `ops.bow`, `ops.pallas_nn` (CUDA nearest-neighbour
-kernel, `csrc/nn.cu`), `ops.icp`, `pipeline.odometry`, `pipeline.posegraph`,
+Ported so far (slices 1 and 2): `utils.se3`, `utils.index` (reads and
+writes at a device-side index without a host read), `ops.projection`,
+`ops.conv2d`, `ops.features`, `ops.solver`, `ops.curvature`, `ops.ground`,
+`ops.grid_hash` (the key mix), `ops.voxel`, `ops.scancontext`, `ops.bow`,
+`ops.pallas_nn` (CUDA nearest-neighbour kernels, `csrc/nn.cu`), `ops.icp`,
+`pipeline.odometry`, `pipeline.geometric`, `pipeline.slam` (the per-frame
+step up to, and without, scan-to-map), `pipeline.posegraph`,
 `pipeline.loop`, `io.synthetic` (noise-free renderer) and `interop`.
 """
 

@@ -9,6 +9,11 @@ package is imported: the types are matched by their class names.
 uint32 words (descriptors, signatures) live in the port as int32 tensors with
 the same bit pattern; `state_to_numpy` returns them as uint32 again for the
 fields listed in `UINT32_FIELDS`.
+
+`slam_state_from_numpy` and `slam_state_to_numpy` carry the per-frame
+`SlamState`: the JAX state's `mapping` (scan-to-map, not ported yet) and
+`rng` (a `jax.random` key) have no counterpart, so the port's state gets a
+fresh `torch.Generator` and the way back returns a dict of the shared fields.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import numpy as np
 import torch
 
 from . import config as C
-from .ops import features
-from .pipeline import loop, odometry, posegraph
+from .ops import curvature, features, ground
+from .pipeline import geometric, loop, odometry, posegraph, slam
 from .utils import se3
 
 UINT32_FIELDS = frozenset({"desc", "prev_desc", "kf_sig", "kf_feat_desc",
@@ -28,7 +33,8 @@ UINT32_FIELDS = frozenset({"desc", "prev_desc", "kf_sig", "kf_feat_desc",
 
 _TYPES = {t.__name__: t for t in (
     se3.Pose, features.Features, odometry.OdometryState, posegraph.PoseGraph,
-    loop.BackendState)}
+    loop.BackendState, geometric.GeometricState, curvature.FeatureClouds,
+    ground.GroundResult)}
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -80,3 +86,24 @@ def _build(cls, d: dict):
 def config_from_dict(d: dict) -> C.SlamConfig:
     """`SlamConfig` from `dataclasses.asdict` of either package's config."""
     return _build(C.SlamConfig, d)
+
+
+_SLAM_SHARED = ("odo", "geo", "merged_pose", "last_delta")
+
+
+def slam_state_from_numpy(tree, seed: int = 0, device="cuda") -> slam.SlamState:
+    """The JAX package's `SlamState` as numpy (any object with `odo`, `geo`,
+    `merged_pose`, `last_delta`) -> the port's `SlamState`.  `mapping` and
+    `rng` are left behind; the generator is seeded with `seed`."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return slam.SlamState(
+        gen=gen, **{f: state_from_numpy(getattr(tree, f), device)
+                    for f in _SLAM_SHARED})
+
+
+def slam_state_to_numpy(state: slam.SlamState) -> dict:
+    """The fields the two packages' `SlamState`s share, as numpy (ring ids
+    int32, descriptor words uint32), keyed by field name."""
+    return {f: state_to_numpy(getattr(state, f), f) for f in _SLAM_SHARED}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..config import LoopConfig
+from ..utils import index
 from .features import popcount32
 
 SIG_FEATURES = 256    # strongest descriptors kept per keyframe
@@ -78,6 +79,6 @@ def detect_loop(
     )
     s = torch.where(eligible, s, -torch.inf)
     best = torch.argmax(s)
-    best_score = s[best]
+    best_score = index.take(s, best)
     found = best_score > cfg.bow_score_threshold
     return best.to(torch.int32), best_score, found

@@ -45,6 +45,16 @@ def _make_pattern(seed: int = 1234) -> np.ndarray:
 
 _PATTERN = _make_pattern()                                  # (256, 2, 2) [pair, endpoint, (dx,dy)]
 _PATTERN_INT = np.round(_PATTERN).astype(np.int64)          # (256, 2, 2)
+_on_device: dict = {}
+
+
+def _pattern(arr: np.ndarray, device) -> torch.Tensor:
+    """The sampling pattern `arr` as a tensor on `device`, copied over once
+    per device (a per-frame host-to-device copy stalls the host)."""
+    key = (id(arr), str(device))
+    if key not in _on_device:
+        _on_device[key] = torch.as_tensor(arr, device=device)
+    return _on_device[key]
 
 
 class Features(NamedTuple):
@@ -182,7 +192,7 @@ def describe(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.T
     m01 = conv2d.sep_filter(blurred, _DY_COL, _ONES_ROW)
     angle = torch.atan2(m01[vl, ul], m10[vl, ul])
     ca, sa = torch.cos(angle), torch.sin(angle)
-    pat = torch.as_tensor(_PATTERN, device=img.device)
+    pat = _pattern(_PATTERN, img.device)
     px = pat[None, :, :, 0]
     py = pat[None, :, :, 1]
     rx = ca[:, None, None] * px - sa[:, None, None] * py + u[:, None, None]
@@ -201,7 +211,7 @@ def describe_dense(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     the K keypoints' 256 pairs are sampled.  Returns (K, 8) int32 words."""
     H, W = img.shape
     blur = _box_blur(img, 5)
-    pat = torch.as_tensor(_PATTERN_INT, device=img.device)   # (256, 2, 2)
+    pat = _pattern(_PATTERN_INT, img.device)                 # (256, 2, 2)
     u = uv[:, 0].long()[:, None, None]
     v = uv[:, 1].long()[:, None, None]
     xi = (u + pat[None, :, :, 0]) % W

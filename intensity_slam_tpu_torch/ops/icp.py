@@ -4,7 +4,8 @@ PyTorch counterpart of `intensity_slam_tpu/ops/icp.py`, the PCL ICP use in
 `loopClosureThread` (`src/intensity_feature_tracker.cpp:216-316`): each
 iteration is one masked nearest-neighbour pass (`ops.pallas_nn`, the CUDA
 kernel on the card) and one closed-form weighted Umeyama update; 32
-iterations plus a final pass = 33 nearest-neighbour launches per alignment.
+iterations plus a final pass = 33 nearest-neighbour launches per alignment,
+all on one pack of the target cloud's valid points.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 from . import pallas_nn
 
@@ -35,13 +36,13 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
     s, _ = torch.sort(x)                       # NaNs sort last
     n = torch.sum(~torch.isnan(x))
     last = x.shape[0] - 1
-    lo = s[torch.clamp((n - 1) // 2, 0, last)]
-    hi = s[torch.clamp(n // 2, 0, last)]
+    lo = index.take(s, torch.clamp((n - 1) // 2, 0, last))
+    hi = index.take(s, torch.clamp(n // 2, 0, last))
     return torch.where(n > 0, 0.5 * lo + 0.5 * hi, torch.nan)
 
 
-def _nn(src_w: torch.Tensor, src_mask, tgt: torch.Tensor, tgt_mask):
-    j, dj = pallas_nn.nearest_neighbor(src_w.contiguous(), tgt, tgt_mask)
+def _nn(src_w: torch.Tensor, src_mask, packed: pallas_nn.PackedTargets):
+    j, dj = pallas_nn.nearest_neighbor_packed(src_w.contiguous(), packed)
     dj = torch.where(src_mask & (dj < 1e29), dj, torch.inf)
     return j.long(), dj
 
@@ -72,18 +73,19 @@ def icp_align(
 ) -> ICPResult:
     """Align src to tgt starting from `init`; fixed `iters` iterations."""
     max_sq = max_corr_dist * max_corr_dist
-    tgt = tgt.contiguous()
-    tgt_mask = tgt_mask.contiguous()
+    # the 33 searches share one target cloud: pack its valid points once
+    packed = pallas_nn.pack_targets(tgt.contiguous(), tgt_mask.contiguous())
     pose = init
-    last_step = torch.tensor(torch.inf, device=src.device)
+    floor = torch.full((), 1e-6, device=src.device)
+    last_step = torch.full((), torch.inf, device=src.device)
     for _ in range(iters):
         src_w = se3.transform_points(pose, src)
-        j, dj = _nn(src_w, src_mask, tgt, tgt_mask)
+        j, dj = _nn(src_w, src_mask, packed)
         acc = torch.isfinite(dj) & (dj <= max_sq)
         # trimming: reject correspondences beyond 9x the median accepted
         # squared distance (partial overlap leaves forced, biased NNs)
         med = nanmedian(torch.where(acc, dj, torch.nan))
-        trim = torch.maximum(9.0 * med, torch.tensor(1e-6, device=src.device))
+        trim = torch.maximum(9.0 * med, floor)
         w = (acc & (dj <= trim)).float()
         upd = _umeyama_step(src_w, tgt[j], w)
         # guard: with no correspondences keep the pose
@@ -91,7 +93,7 @@ def icp_align(
         pose = se3.pose_where(has, se3.compose(upd, pose), pose)
         last_step = torch.sqrt(torch.sum(se3.se3_log(upd) ** 2))
     src_w = se3.transform_points(pose, src)
-    j, dj = _nn(src_w, src_mask, tgt, tgt_mask)
+    j, dj = _nn(src_w, src_mask, packed)
     n_src = torch.clamp(torch.sum(src_mask), min=1)
     inl = torch.isfinite(dj) & (dj <= fitness_radius * fitness_radius)
     n_inl = torch.sum(inl)

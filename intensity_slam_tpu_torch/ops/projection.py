@@ -8,6 +8,7 @@ zeroed-point sentinel (`intensity_feature_tracker.cpp:1071-1099`).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -58,6 +59,62 @@ def detection_mask(cfg: SensorConfig, device="cuda") -> torch.Tensor:
     if not cfg.hand_held:
         ok = torch.ones_like(ok)
     return ok[None, :].expand(H, W).clone()
+
+
+def project_unorganized(
+    xyz: torch.Tensor,
+    intensity: torch.Tensor,
+    cfg: SensorConfig,
+    fov_up_deg: float | None = None,
+    fov_down_deg: float | None = None,
+) -> ScanImage:
+    """Spherical projection for unorganized clouds (KITTI-style HDL-64).
+
+    Elevation binning replaces the per-ring angle ladders of
+    `scanRegistration.cpp:290-325`; collisions resolve to the nearer point
+    (scatter-min on range), and among points of equal range to the lowest
+    index.  `xyz` is (N, 3) padded with zeros; zero-range points are
+    dropped.  FOV defaults to the sensor config's beam table.
+    """
+    if fov_up_deg is None:
+        fov_up_deg = cfg.fov_up
+    if fov_down_deg is None:
+        fov_down_deg = cfg.fov_down
+    H, W = cfg.image_height, cfg.image_width
+    N = xyz.shape[0]
+    dev = xyz.device
+    deg = 180.0 / math.pi
+    rng = torch.sqrt(torch.sum(xyz * xyz, dim=-1))
+    ok = rng >= cfg.min_range
+    elev = deg * torch.arcsin(
+        torch.where(ok, xyz[:, 2] / torch.clamp(rng, min=1e-6), 0.0))
+    azim = deg * torch.arctan2(xyz[:, 1], xyz[:, 0])  # [-180, 180)
+    row = torch.clamp(
+        torch.round((fov_up_deg - elev) / (fov_up_deg - fov_down_deg) * (H - 1)
+                    ).to(torch.int64), 0, H - 1)
+    col = torch.clamp((((azim + 180.0) / 360.0) * W).to(torch.int64) % W, 0, W - 1)
+    flat = torch.where(ok, row * W + col, H * W)  # invalid -> overflow slot
+    # scatter-min on range to keep the nearest point per pixel
+    big = 1e9
+    rng_img = torch.full((H * W + 1,), big, dtype=rng.dtype, device=dev)
+    rng_img = rng_img.scatter_reduce(0, flat, torch.where(ok, rng, big), "amin")
+    # a point owns its pixel iff its range equals the min; lowest index wins
+    is_winner = ok & (rng <= rng_img[flat] + 1e-6)
+    none = torch.iinfo(torch.int32).max
+    order = torch.where(is_winner, torch.arange(N, device=dev), none)
+    owner = torch.full((H * W + 1,), none, dtype=torch.int64, device=dev)
+    owner = owner.scatter_reduce(0, flat, order, "amin")[: H * W]
+    has_pt = owner < none
+    safe_owner = torch.where(has_pt, owner, 0)
+    xyz_img = torch.where(has_pt[:, None], xyz[safe_owner], 0.0).reshape(H, W, 3)
+    inten_img = torch.where(has_pt, intensity[safe_owner], 0.0).reshape(H, W)
+    rng_out = torch.where(has_pt, rng[safe_owner], 0.0).reshape(H, W)
+    return ScanImage(
+        torch.clamp(inten_img, 0.0, 255.0).float(),
+        rng_out.float(),
+        xyz_img.float(),
+        has_pt.reshape(H, W),
+    )
 
 
 def lift_uv_to_3d(scan: ScanImage, uv: torch.Tensor

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..config import LoopConfig
+from ..utils import index
 from .features import top_k
 
 
@@ -99,10 +100,10 @@ def detect_loop(
     dists, shifts = _distance_all_shifts(cur_desc, hist_desc[cand])
     dists = torch.where(cand_ok, dists, torch.inf)
     best = torch.argmin(dists)
-    best_dist = dists[best]
+    best_dist = index.take(dists, best)
     found = best_dist < cfg.sc_dist_threshold
-    loop_idx = cand[best].to(torch.int32)
-    yaw = shifts[best].float() / S * 2.0 * math.pi
+    loop_idx = index.take(cand, best).to(torch.int32)
+    yaw = index.take(shifts, best).float() / S * 2.0 * math.pi
     # shifts > half a turn wrap negative
     yaw = torch.where(yaw > math.pi, yaw - 2 * math.pi, yaw)
     return loop_idx, yaw, best_dist, found

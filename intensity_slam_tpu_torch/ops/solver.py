@@ -11,9 +11,10 @@ The JAX package's `lax.while_loop` becomes a Python loop whose condition is
 read on the host once per iteration, so the solve stops on the same iteration
 as the reference.  A residual function may carry its analytic Jacobian as a
 `jacobian(pose)` attribute (`point_to_point` does); any other residual
-function is differentiated with `torch.func.jacfwd`.  Only the point-to-point
-residual is ported so far; the other residual builders belong to the
-geometric fallback and scan-to-map.
+function is differentiated with `torch.func.jacfwd`.  The point residuals
+(`point_to_point`, `point_to_plane_nd`, `rotation_only_ground`,
+`point_to_line`, `point_to_plane_3pt`) carry theirs, and `concat_residuals`
+stacks them when every part has one; `pose_prior` goes through `jacfwd`.
 """
 
 from __future__ import annotations
@@ -116,9 +117,9 @@ def solve_pose(
     MAX_CONSECUTIVE_REJECT = 3  # at the optimum every LM step is rejected
 
     pose, cost = pose0, c0
-    lam = torch.tensor(lm_lambda0, dtype=c0.dtype, device=dev)
-    gnorm = torch.tensor(torch.inf, dtype=c0.dtype, device=dev)
-    rel = torch.tensor(torch.inf, dtype=c0.dtype, device=dev)
+    lam = torch.full((), lm_lambda0, dtype=c0.dtype, device=dev)
+    gnorm = torch.full((), torch.inf, dtype=c0.dtype, device=dev)
+    rel = torch.full((), torch.inf, dtype=c0.dtype, device=dev)
     rej = torch.zeros((), dtype=torch.int32, device=dev)
     k = 0
     # early exit on gradient tolerance, tiny accepted relative cost decrease
@@ -160,7 +161,7 @@ def solve_pose(
         pose=pose,
         final_cost=cost,
         initial_cost=c0,
-        iterations=torch.tensor(k, dtype=torch.int32, device=dev),
+        iterations=torch.full((), k, dtype=torch.int32, device=dev),
         converged=gnorm < tol,
         min_hessian_eig=min_eig,
     )
@@ -177,9 +178,134 @@ def point_to_point(src: torch.Tensor, dst: torch.Tensor,
         r = se3.quat_rotate(p.q[None, :], src) + p.t[None, :] - dst
         return r, w
 
+    fn.jacobian = lambda p: _point_jacobian(p, src)
+    return fn
+
+
+def _point_jacobian(p: Pose, pts: torch.Tensor) -> torch.Tensor:
+    """d(R pts + t)/d(xi) at xi = 0 for the right retraction p o exp(xi):
+    J_pw = [-R [pts]x, R], shape (G, 3, 6)."""
+    R = se3.quat_to_mat(p.q)
+    return torch.cat([-R @ se3.skew(pts), R.expand(pts.shape[0], 3, 3)], dim=-1)
+
+
+def point_to_plane_nd(pts: torch.Tensor, normals: torch.Tensor,
+                      ds: torch.Tensor, w: torch.Tensor) -> ResidualFn:
+    """`LidarPlaneNormFactor` (:199-240): r = n . (R p + t) + d, 1-dim.
+    Jacobian n^T J_pw."""
+
+    def fn(p: Pose):
+        pw = se3.quat_rotate(p.q[None, :], pts) + p.t[None, :]
+        r = torch.sum(pw * normals, dim=-1) + ds
+        return r[:, None], w
+
     def jacobian(p: Pose):
-        R = se3.quat_to_mat(p.q)
-        return torch.cat([-R @ se3.skew(src), R.expand(src.shape[0], 3, 3)], dim=-1)
+        return normals[:, None, :] @ _point_jacobian(p, pts)
 
     fn.jacobian = jacobian
+    return fn
+
+
+def rotation_only_ground(pts: torch.Tensor, normals: torch.Tensor,
+                         ds: torch.Tensor, w: torch.Tensor) -> ResidualFn:
+    """`LidarGroundPlaneNormFactor` (:101-140): rotation-only point-to-plane —
+    the translation is ignored, so the translation columns of the Jacobian
+    are zero.  Defined by the reference's residual library and used by no
+    shipped pipeline; kept on the same terms."""
+
+    def fn(p: Pose):
+        pw = se3.quat_rotate(p.q[None, :], pts)
+        r = torch.sum(pw * normals, dim=-1) + ds
+        return r[:, None], w
+
+    def jacobian(p: Pose):
+        J = normals[:, None, :] @ _point_jacobian(p, pts)
+        return torch.cat([J[..., :3], torch.zeros_like(J[..., 3:])], dim=-1)
+
+    fn.jacobian = jacobian
+    return fn
+
+
+def point_to_line(pts: torch.Tensor, line_a: torch.Tensor,
+                  line_b: torch.Tensor, w: torch.Tensor) -> ResidualFn:
+    """`LidarEdgeFactor` (:243-293): r = (p' - a) x (p' - b) / |a - b|,
+    3-dim blocks.  (p' - a) x (p' - b) = (b - a) x p' + a x b, so the
+    Jacobian is [b - a]x J_pw / |a - b|."""
+    diff = line_a - line_b
+    denom = torch.clamp(torch.sqrt(torch.sum(diff * diff, dim=-1, keepdim=True)),
+                        min=1e-9)
+
+    def fn(p: Pose):
+        pw = se3.quat_rotate(p.q[None, :], pts) + p.t[None, :]
+        r = torch.linalg.cross(pw - line_a, pw - line_b, dim=-1) / denom
+        return r, w
+
+    def jacobian(p: Pose):
+        return (se3.skew(line_b - line_a) @ _point_jacobian(p, pts)
+                / denom[:, :, None])
+
+    fn.jacobian = jacobian
+    return fn
+
+
+def point_to_plane_3pt(pts: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
+                       pc: torch.Tensor, w: torch.Tensor) -> ResidualFn:
+    """`LidarPlaneFactor` (:143-196): signed distance of the transformed point
+    to the plane spanned by (a, b, c); 1-dim blocks.  Jacobian n^T J_pw."""
+    n = torch.linalg.cross(pa - pb, pa - pc, dim=-1)
+    n = n / torch.clamp(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)),
+                        min=1e-9)
+
+    def fn(p: Pose):
+        pw = se3.quat_rotate(p.q[None, :], pts) + p.t[None, :]
+        r = torch.sum((pw - pa) * n, dim=-1)
+        return r[:, None], w
+
+    def jacobian(p: Pose):
+        return n[:, None, :] @ _point_jacobian(p, pts)
+
+    fn.jacobian = jacobian
+    return fn
+
+
+def pose_prior(prior: Pose, sqrt_info: torch.Tensor) -> ResidualFn:
+    """Anchor to a predicted pose: r = sqrt_info * log(prior^-1 o pose), one
+    6-dim block, tangent order (rot, trans).  Differentiated with `jacfwd`
+    (one block: the forward-mode cost is small)."""
+
+    def fn(p: Pose):
+        xi = se3.se3_log(se3.compose(se3.inverse(prior), p))
+        return (sqrt_info * xi)[None, :], torch.ones((1,), dtype=xi.dtype,
+                                                     device=xi.device)
+
+    return fn
+
+
+def concat_residuals(*fns_dims: tuple[ResidualFn, int]) -> ResidualFn:
+    """Stack heterogeneous residual sets into one, padding narrower blocks
+    with zero columns.  When every part carries a `jacobian`, so does the
+    stack (the padded rows' Jacobians are zero)."""
+    max_d = max(d for _, d in fns_dims)
+
+    def fn(p: Pose):
+        rs, ws = [], []
+        for f, d in fns_dims:
+            r, w = f(p)
+            if d < max_d:
+                r = torch.nn.functional.pad(r, (0, max_d - d))
+            rs.append(r)
+            ws.append(w)
+        return torch.cat(rs, dim=0), torch.cat(ws, dim=0)
+
+    if all(hasattr(f, "jacobian") for f, _ in fns_dims):
+        def jacobian(p: Pose):
+            Js = []
+            for f, d in fns_dims:
+                J = f.jacobian(p)                        # (G, d, 6)
+                if d < max_d:
+                    J = torch.nn.functional.pad(J, (0, 0, 0, max_d - d))
+                Js.append(J)
+            return torch.cat(Js, dim=0)
+
+        fn.jacobian = jacobian
     return fn

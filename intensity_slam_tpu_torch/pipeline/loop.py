@@ -30,7 +30,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import bow, icp, scancontext
 from ..ops.voxel import compact, voxel_downsample
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 from . import posegraph
 
@@ -156,7 +156,7 @@ def write_slot(state: BackendState, small: SmallState, slot: SlotData
     for f in _PAYLOAD_FIELDS:
         arr = getattr(state, f)
         out = torch.cat([arr, arr[:1]])
-        out[p] = getattr(slot, _SLOT_OF[f])
+        out.index_copy_(0, p.reshape(1), getattr(slot, _SLOT_OF[f])[None])
         upd[f] = out[:K]
     return merge_small(state, small)._replace(**upd)
 
@@ -222,12 +222,6 @@ def _compact_small(st: SmallState) -> SmallState:
     )
 
 
-def _set(arr: torch.Tensor, k, v) -> torch.Tensor:
-    out = arr.clone()
-    out[k] = v
-    return out
-
-
 def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=-1))
 
@@ -256,7 +250,7 @@ def keyframe_core(
     lc = cfg.loop
     dev = small.kf_slot.device
     K = lc.max_keyframes
-    timestamp = torch.as_tensor(timestamp, dtype=torch.float32, device=dev)
+    timestamp = index.as_scalar(timestamp, torch.float32, dev)
 
     # capacity: decimate the store + graph by 2 when full
     need_compact = small.num_kf >= lc.max_keyframes
@@ -265,7 +259,7 @@ def keyframe_core(
     k = small.num_kf.long()
 
     # ingest: physical slot + node + descriptors
-    phys = small.free_slots[small.free_count.long() - 1]
+    phys = index.take(small.free_slots, small.free_count - 1)
     graph = posegraph.add_node(small.graph, map_pose, qual=era_qual)
     if scan_int is None:
         scan_int = torch.zeros(scan_xyz.shape[0], dtype=torch.float32, device=dev)
@@ -295,14 +289,14 @@ def keyframe_core(
     )
     state = small._replace(
         graph=graph,
-        kf_sc=_set(small.kf_sc, k, sc),
-        kf_ringkey=_set(small.kf_ringkey, k, rk),
-        kf_sig=_set(small.kf_sig, k, sig),
-        kf_time=_set(small.kf_time, k, timestamp),
+        kf_sc=index.put(small.kf_sc, k, sc),
+        kf_ringkey=index.put(small.kf_ringkey, k, rk),
+        kf_sig=index.put(small.kf_sig, k, sig),
+        kf_time=index.put(small.kf_time, k, timestamp),
         num_kf=small.num_kf + 1,
-        kf_raw=Pose(_set(small.kf_raw.q, k, map_pose.q),
-                    _set(small.kf_raw.t, k, map_pose.t)),
-        kf_slot=_set(small.kf_slot, k, phys),
+        kf_raw=Pose(index.put(small.kf_raw.q, k, map_pose.q),
+                    index.put(small.kf_raw.t, k, map_pose.t)),
+        kf_slot=index.put(small.kf_slot, k, phys),
         free_count=small.free_count - 1,
     )
 
@@ -314,19 +308,19 @@ def keyframe_core(
     g = state.graph
     step_env = torch.where((ar >= 1) & (ar < g.num_nodes), _norm(g.odo_rel.t), 0.0)
     cum_env = torch.cumsum(step_env, 0)
-    path_env = torch.abs(cum_env[k] - cum_env)
-    sep_env = _norm(g.poses.t - g.poses.t[k][None, :])
+    path_env = torch.abs(index.take(cum_env, k) - cum_env)
+    sep_env = _norm(g.poses.t - index.take(g.poses.t, k)[None, :])
     cand_plausible = sep_env <= (
         3.0 * lc.loop_drift_rate * torch.clamp(path_env, min=1.0) + 1.0)
     kf_eligible = kf_valid & cand_plausible
-    false = torch.tensor(False, device=dev)
-    minus1 = torch.tensor(-1, dtype=torch.int32, device=dev)
-    yaw = torch.tensor(0.0, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    minus1 = index.scalar(-1, torch.int32, dev)
+    yaw = index.scalar(0.0, device=dev)
     if lc.use_scancontext:
         sc_idx, yaw, sc_dist, sc_found = scancontext.detect_loop(
             sc, rk, state.kf_sc, state.kf_ringkey, kf_eligible, k, lc)
     else:
-        sc_idx, sc_dist, sc_found = minus1, torch.tensor(torch.inf, device=dev), false
+        sc_idx, sc_dist, sc_found = minus1, index.scalar(torch.inf, device=dev), false
     if lc.use_bow_loop:
         bow_idx, _, bow_found = bow.detect_loop(
             sig, state.kf_sig, kf_eligible, k, lc)
@@ -336,12 +330,12 @@ def keyframe_core(
         # kd-radius strategy (`loop_closure_handler.cpp:42-84`): nearest
         # keyframe within radius_search_m (graph frame) whose timestamp
         # differs by more than min_time_gap
-        dpos = _norm(g.poses.t - g.poses.t[k][None, :])
+        dpos = _norm(g.poses.t - index.take(g.poses.t, k)[None, :])
         eligible = (kf_valid & (ar < k) & (dpos < lc.radius_search_m)
                     & (torch.abs(state.kf_time - timestamp) > lc.min_time_gap))
         dmask = torch.where(eligible, dpos, torch.inf)
         rad_idx = torch.argmin(dmask).to(torch.int32)
-        rad_found = torch.isfinite(dmask[rad_idx.long()])
+        rad_found = torch.isfinite(index.take(dmask, rad_idx))
     else:
         rad_idx, rad_found = minus1, false
     loop_idx = torch.where(sc_found, sc_idx, torch.where(bow_found, bow_idx, rad_idx))
@@ -352,11 +346,11 @@ def keyframe_core(
     if not bool(found):
         bout = BackendOutput(
             loop_found=false, loop_idx=minus1,
-            icp_fitness=torch.tensor(torch.inf, device=dev),
+            icp_fitness=index.scalar(torch.inf, device=dev),
             correction=Pose.identity(device=dev),
             sc_found=found, sc_dist=sc_dist,
-            icp_inlier_frac=torch.tensor(0.0, device=dev),
-            icp_int_corr=torch.tensor(-2.0, device=dev),
+            icp_inlier_frac=index.scalar(0.0, device=dev),
+            icp_int_corr=index.scalar(-2.0, device=dev),
             compacted=need_compact,
         )
         return state, slot, bout
@@ -366,8 +360,8 @@ def keyframe_core(
     # against it, initialized with the ScanContext yaw (else the rotation of
     # the graph's relative estimate)
     li = loop_idx.long()
-    T_cur = Pose(g.poses.q[k], g.poses.t[k])
-    T_loop = Pose(g.poses.q[li], g.poses.t[li])
+    T_cur = Pose(index.take(g.poses.q, k), index.take(g.poses.t, k))
+    T_loop = Pose(index.take(g.poses.q, li), index.take(g.poses.t, li))
     win = torch.arange(-lc.submap_window, lc.submap_window + 1, device=dev)
     idxs = torch.minimum(torch.clamp(li + win, min=0),
                          torch.clamp(state.num_kf.long() - 1, min=0))
@@ -397,9 +391,10 @@ def keyframe_core(
     r_gate = se3.se3_log(se3.compose(se3.inverse(rel), rel_est))
     step_len = torch.where((ar >= 1) & (ar < g.num_nodes), _norm(g.odo_rel.t), 0.0)
     cum_len = torch.cumsum(step_len, 0)
-    path_e = torch.clamp(torch.abs(cum_len[k] - cum_len[li]), min=1.0)
+    path_e = torch.clamp(torch.abs(index.take(cum_len, k) - index.take(cum_len, li)),
+                         min=1.0)
     n_e = torch.clamp(torch.abs(k - li).float(), min=1.0)
-    odo_var = torch.tensor(lc.odom_noise, dtype=torch.float32, device=dev)
+    odo_var = index.constant(lc.odom_noise, device=dev)
     env = n_e * odo_var + torch.cat([
         ((lc.loop_drift_rot_rate * path_e) ** 2).expand(3),
         ((lc.loop_drift_rate * path_e) ** 2).expand(3),
@@ -412,9 +407,9 @@ def keyframe_core(
         active = posegraph.consistent_loop_mask(
             g_cand, odo_noise=lc.odom_noise, drift_rate=lc.loop_drift_rate,
             drift_rot_rate=lc.loop_drift_rot_rate, chi2_max=lc.pcm_chi2)
-        pcm_ok = active[l_new]
+        pcm_ok = index.take(active, l_new)
     else:
-        active, pcm_ok = g_cand.loop_valid, torch.tensor(True, device=dev)
+        active, pcm_ok = g_cand.loop_valid, torch.ones((), dtype=torch.bool, device=dev)
     accept = (
         (res.fitness <= lc.icp_fitness_score)
         & (res.inlier_frac >= lc.icp_min_inlier_frac)
@@ -434,7 +429,7 @@ def keyframe_core(
                 drift_rot_rate=lc.loop_drift_rot_rate,
                 loop_active=active,
             )
-    T_new = Pose(g_out.poses.q[k], g_out.poses.t[k])
+    T_new = Pose(index.take(g_out.poses.q, k), index.take(g_out.poses.t, k))
     # raw->PGO-frame correction; identity unless accepted
     corr = se3.pose_where(accept, se3.compose(T_new, se3.inverse(map_pose)),
                           Pose.identity(device=dev))
@@ -488,9 +483,10 @@ def apply_correction(st, accepted: torch.Tensor, corr: Pose):
     `last_raw` and the current keyframe's `kf_raw` move to the corrected
     frame.  `st` may be a BackendState or a SmallState."""
     k = (st.num_kf - 1).long()
-    raw_k = Pose(st.kf_raw.q[k], st.kf_raw.t[k])
+    raw_k = Pose(index.take(st.kf_raw.q, k), index.take(st.kf_raw.t, k))
     T_new = se3.pose_where(accepted, se3.compose(corr, raw_k), raw_k)
-    kf_raw = Pose(_set(st.kf_raw.q, k, T_new.q), _set(st.kf_raw.t, k, T_new.t))
+    kf_raw = Pose(index.put(st.kf_raw.q, k, T_new.q),
+                  index.put(st.kf_raw.t, k, T_new.t))
     last_raw = se3.pose_where(accepted, T_new, st.graph.last_raw)
     return st._replace(kf_raw=kf_raw,
                        graph=st.graph._replace(last_raw=last_raw))

@@ -24,7 +24,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import features as F
 from ..ops import projection, solver
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 
 
@@ -74,7 +74,7 @@ def odometry_step(
 ) -> tuple[OdometryState, OdometryOutput]:
     fc, oc = cfg.feature, cfg.odometry
     dev = state.prev_xyz.device
-    timestamp = torch.as_tensor(timestamp, dtype=torch.float32, device=dev)
+    timestamp = index.as_scalar(timestamp, torch.float32, dev)
     feats = F.extract(scan, detect_mask, fc)
 
     # match current -> previous (src = current, dst = previous: the solved
@@ -128,7 +128,7 @@ def odometry_step(
         prev_desc=feats.desc,
         prev_xyz=feats.xyz,
         prev_xyz_valid=feats.xyz_valid,
-        has_prev=torch.tensor(True, device=dev),
+        has_prev=torch.ones((), dtype=torch.bool, device=dev),
         last_kf_time=torch.where(is_kf, timestamp, state.last_kf_time),
         last_kf_pos=torch.where(is_kf, new_pose.t, state.last_kf_pos),
         frame_idx=state.frame_idx + 1,

@@ -24,7 +24,7 @@ import torch
 from torch.func import jvp
 
 from ..config import LoopConfig
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 
 
@@ -43,13 +43,9 @@ class PoseGraph(NamedTuple):
     last_raw: Pose               # raw map pose of the most recently added node
 
 
-def _set(arr: torch.Tensor, k, v) -> torch.Tensor:
-    out = arr.clone()
-    out[k] = v
-    return out
-
-
 def _take(p: Pose, idx) -> Pose:
+    if idx.dim() == 0:
+        return Pose(index.take(p.q, idx), index.take(p.t, idx))
     return Pose(p.q[idx], p.t[idx])
 
 
@@ -89,11 +85,12 @@ def add_node(g: PoseGraph, map_pose: Pose, qual=1.0) -> PoseGraph:
     est = se3.compose(prev_est, rel)
     est = se3.pose_where(k > 0, est, map_pose)
     return g._replace(
-        poses=Pose(_set(g.poses.q, k, est.q), _set(g.poses.t, k, est.t)),
-        node_valid=_set(g.node_valid, k, True),
-        odo_rel=Pose(_set(g.odo_rel.q, k, rel.q), _set(g.odo_rel.t, k, rel.t)),
-        odo_qual=_set(g.odo_qual, k, torch.as_tensor(qual, dtype=torch.float32,
-                                                     device=dev)),
+        poses=Pose(index.put(g.poses.q, k, est.q),
+                   index.put(g.poses.t, k, est.t)),
+        node_valid=index.put(g.node_valid, k, True),
+        odo_rel=Pose(index.put(g.odo_rel.q, k, rel.q),
+                     index.put(g.odo_rel.t, k, rel.t)),
+        odo_qual=index.put(g.odo_qual, k, qual),
         num_nodes=g.num_nodes + 1,
         last_raw=map_pose,
     )
@@ -109,11 +106,12 @@ def add_loop(g: PoseGraph, i, j, rel: Pose, fitness: torch.Tensor,
     var = torch.clamp(fitness, min=cfg.loop_fitness_floor).expand(6)
     sqrt_info = 1.0 / torch.sqrt(var)
     return g._replace(
-        loop_i=_set(g.loop_i, l, torch.as_tensor(i).to(torch.int32)),
-        loop_j=_set(g.loop_j, l, torch.as_tensor(j).to(torch.int32)),
-        loop_rel=Pose(_set(g.loop_rel.q, l, rel.q), _set(g.loop_rel.t, l, rel.t)),
-        loop_sqrt_info=_set(g.loop_sqrt_info, l, sqrt_info),
-        loop_valid=_set(g.loop_valid, l, True),
+        loop_i=index.put(g.loop_i, l, i),
+        loop_j=index.put(g.loop_j, l, j),
+        loop_rel=Pose(index.put(g.loop_rel.q, l, rel.q),
+                      index.put(g.loop_rel.t, l, rel.t)),
+        loop_sqrt_info=index.put(g.loop_sqrt_info, l, sqrt_info),
+        loop_valid=index.put(g.loop_valid, l, True),
         num_loops=g.num_loops + 1,
     )
 
@@ -301,7 +299,7 @@ def _dense_update_multi(poses: Pose, node_valid, odo_ok, rel_est: Pose,
     dg = torch.sqrt(torch.clamp(torch.diagonal(Hm), min=1e-12))
     Hn = Hm / dg[:, None] / dg[None, :]
     rhs = -(b.reshape(-1) / dg)
-    lam = torch.tensor(lams, dtype=torch.float32, device=dev)
+    lam = index.constant(lams, device=dev)
     B = lam.shape[0]
     A = Hn[None] + lam[:, None, None] * torch.eye(n, device=dev)[None]
     L, info = torch.linalg.cholesky_ex(A)
@@ -360,7 +358,7 @@ def optimize(
     odo_ok = g.node_valid & (idx_n >= 1) & (idx_n < g.num_nodes)
     step_len = torch.where(odo_ok, _norm(g.odo_rel.t), 0.0)
     step_eff = step_len * g.odo_qual
-    odo_nz = torch.tensor(odo_noise, dtype=torch.float32, device=dev)
+    odo_nz = index.constant(odo_noise, device=dev)
     odo_var_edge = odo_nz[None, :] + torch.cat([
         ((drift_rot_rate * step_eff[:, None]) ** 2).expand(K, 3),
         ((drift_rate * step_eff[:, None]) ** 2).expand(K, 3),
@@ -409,8 +407,8 @@ def optimize(
         # a NaN candidate (failed Cholesky) must never win
         costs = torch.where(torch.isfinite(costs), costs, torch.inf)
         best = torch.argmin(costs)
-        poses = Pose(torch.cat([poses.q[None], cands.q])[best],
-                     torch.cat([poses.t[None], cands.t])[best])
+        poses = Pose(index.take(torch.cat([poses.q[None], cands.q]), best),
+                     index.take(torch.cat([poses.t[None], cands.t]), best))
     return g._replace(poses=poses)
 
 
@@ -459,7 +457,7 @@ def consistent_loop_mask(
     n_j = torch.abs(lj[:, None] - lj[None, :])
     steps = torch.clamp((n_i + n_j).float(), min=1.0)
     path = torch.clamp(path_i + path_j, min=1.0)
-    odo_var = torch.tensor(odo_noise, dtype=torch.float32, device=dev)
+    odo_var = index.constant(odo_noise, device=dev)
     drift_var = torch.cat([
         ((drift_rot_rate * path[..., None]) ** 2).expand(L, L, 3),
         ((drift_rate * path[..., None]) ** 2).expand(L, L, 3),

@@ -1,0 +1,202 @@
+"""The per-frame SLAM step, up to (and without) scan-to-map.
+
+PyTorch counterpart of `intensity_slam_tpu/pipeline/slam.py`:
+
+    scan -> [undistort] -> project (C1) -> intensity odometry (C3-C6)
+         -> curvature features (C11), every frame
+         -> geometric fallback solve (C12), only when the intensity stream
+            skipped and a previous frame exists
+         -> odometry mux (C13): intensity delta unless skipped
+         -> ground extraction (C2)
+         -> velocity EMA for the next frame's undistortion
+
+The mux contract (`odom_handler_node.cpp:96-131`): per frame, compose the
+incremental delta from the intensity stream when it is valid, else from the
+geometric fallback stream.
+
+NOT PORTED YET: the scan-to-map refinement (`mapping.mapping_step`,
+`slam.py:147-154` of the JAX package).  Until it is, `SlamOutput.pose` is
+the merged odometry pose (equal to `odom_pose`), and the mapping outputs of
+the JAX `SlamOutput` (`num_plane_residuals`, `num_window_residuals`,
+`map_points`, `ground_ds*`, `corner_ds*`) are absent.
+
+Where the JAX step carries a `jax.random` key for the ground RANSAC, this
+state carries a `torch.Generator`; a caller may hand the draws in instead
+(`ground_u`).  The JAX package's `lax.cond` on `skip & has_prev` is a host
+branch here: `skip`, `has_prev` and `is_keyframe` come to the host in ONE
+read per frame, and `SlamOutput.host` holds them for the caller.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import SlamConfig
+from ..ops import curvature, ground, projection
+from ..utils import se3
+from ..utils.se3 import Pose
+from . import geometric, odometry
+
+
+class SlamState(NamedTuple):
+    odo: odometry.OdometryState
+    geo: geometric.GeometricState
+    merged_pose: Pose           # mux-integrated odometry (odom frame)
+    gen: torch.Generator        # source of the ground RANSAC's draws
+    last_delta: Pose            # VELOCITY estimate: EMA (0.5 mix) of the
+    # per-frame mux deltas, the constant-velocity prediction for motion
+    # undistortion (sensor.undistort).  An EMA and not the raw previous
+    # delta: undistorting frame k with delta_{k-1} closes a feedback loop of
+    # gain ~1 that oscillates with growing amplitude; the 0.5 mix has zero
+    # gain at exactly that alternating mode.
+
+
+class HostFlags(NamedTuple):
+    """The frame's one host read."""
+    skip: bool
+    has_prev: bool              # the geometric state had a previous frame
+    is_keyframe: bool
+
+
+class SlamOutput(NamedTuple):
+    pose: Pose                  # the merged odometry pose until scan-to-map
+    # is ported (then: the mapping-refined map-frame pose)
+    odom_pose: Pose             # merged odometry pose
+    skip: torch.Tensor
+    is_keyframe: torch.Tensor
+    num_good: torch.Tensor
+    ground_ok: torch.Tensor
+    desc: torch.Tensor          # (K, 8) int32 frame descriptor words (for
+    # the keyframe store / BoW loop channel)
+    desc_valid: torch.Tensor
+    feat_xyz: torch.Tensor      # (K, 3) sensor-frame feature points
+    host: HostFlags
+
+
+def init_state(cfg: SlamConfig, seed: int = 0, device="cuda") -> SlamState:
+    gc, sc = cfg.geometric, cfg.sensor
+    num_less_sharp = sc.image_height * gc.num_segments * gc.less_sharp_per_segment
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return SlamState(
+        odo=odometry.init_state(cfg, device=device),
+        geo=geometric.init_state(cfg, num_less_sharp, gc.max_surf_points,
+                                 device=device),
+        merged_pose=Pose.identity(device=device),
+        gen=gen,
+        last_delta=Pose.identity(device=device),
+    )
+
+
+def undistort_scan(xyz: torch.Tensor, delta: Pose, cfg: SlamConfig) -> torch.Tensor:
+    """Move every point to the scan-START frame under a constant-velocity
+    model (A-LOAM TransformToStart, `laserOdometry.cpp:147-194`): a point
+    fired at intra-scan fraction a is corrected by delta^a — slerp on the
+    rotation, linear on the translation.  The fraction is the column index
+    over the width."""
+    sc = cfg.sensor
+    col = (torch.arange(xyz.shape[0], device=xyz.device) % sc.image_width).float()
+    alpha = (col / sc.image_width)[:, None]
+    ident = torch.zeros(4, dtype=xyz.dtype, device=xyz.device)
+    ident[0].fill_(1.0)
+    q_a = se3.slerp(ident, delta.q, alpha)
+    return se3.quat_rotate(q_a, xyz) + alpha * delta.t
+
+
+def slam_step(
+    state: SlamState,
+    xyz: torch.Tensor,             # (H*W, 3) organized scan
+    inten: torch.Tensor,           # (H*W,)
+    timestamp,
+    detect_mask: torch.Tensor,
+    cfg: SlamConfig,
+    fallback_delta: Pose | None = None,
+    ground_u: torch.Tensor | None = None,   # (ransac_iters, 3) draws in
+    # [0, 1); drawn from the state's generator when None
+) -> tuple[SlamState, SlamOutput]:
+    dev = xyz.device
+    if cfg.sensor.undistort:
+        xyz = undistort_scan(xyz, state.last_delta, cfg)
+    scan = projection.project_organized(xyz, inten, cfg.sensor)
+
+    # intensity odometry (CS-1)
+    odo_state, odo_out = odometry.odometry_step(
+        state.odo, scan, timestamp, detect_mask, cfg)
+
+    # geometric features every frame (scanRegistration runs per scan); the
+    # fallback SOLVE only on skip (`laserOdometry.cpp:406-417`)
+    fc = curvature.extract_features(scan, cfg.sensor, cfg.geometric)
+    skip, has_prev, is_kf = torch.stack(
+        [odo_out.skip, state.geo.has_prev, odo_out.is_keyframe]).tolist()
+    host = HostFlags(skip, has_prev, is_kf)
+    if fallback_delta is None:
+        if skip and has_prev:
+            fallback_delta = geometric.geometric_delta(state.geo, fc, cfg)
+        else:
+            fallback_delta = Pose.identity(device=dev)
+    # mux (C13): intensity delta unless skipped
+    delta = se3.pose_where(odo_out.skip, fallback_delta, odo_out.delta)
+    merged = se3.compose(state.merged_pose, delta)
+    # the mux delta (whichever stream produced it) is the best velocity
+    # estimate: it warm-starts the next geometric solve
+    geo_state = geometric.update_state(state.geo, fc, delta)
+
+    # ground extraction (C2)
+    if ground_u is None:
+        ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
+    gres = ground.extract_ground(ground_u, xyz, scan.valid.reshape(-1), cfg.ground)
+
+    # velocity EMA for the next frame's undistortion prediction
+    vel = Pose(
+        q=se3.quat_normalize(se3.slerp(state.last_delta.q, delta.q, 0.5)),
+        t=0.5 * (state.last_delta.t + delta.t),
+    )
+    new_state = SlamState(
+        odo=odo_state, geo=geo_state, merged_pose=merged, gen=state.gen,
+        last_delta=vel,
+    )
+    out = SlamOutput(
+        pose=merged,
+        odom_pose=merged,
+        skip=odo_out.skip,
+        is_keyframe=odo_out.is_keyframe,
+        num_good=odo_out.num_good,
+        ground_ok=gres.ok,
+        desc=odo_out.features.desc,
+        desc_valid=odo_out.features.valid & odo_out.features.xyz_valid,
+        feat_xyz=odo_out.features.xyz,
+        host=host,
+    )
+    return new_state, out
+
+
+def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,
+                 cfg: SlamConfig, seed: int = 0) -> SlamOutput:
+    """Replay a sequence through `slam_step` on the sequence's device, in a
+    Python loop.  Returns the outputs stacked over frames; the per-frame bulk
+    data (descriptors, feature points) is dropped, as the JAX package's
+    `lax.scan` replay drops it, and `host` is a list of the frames' flags."""
+    dev = xyz_seq.device
+    mask = projection.detection_mask(cfg.sensor, device=dev)
+    state = init_state(cfg, seed=seed, device=dev)
+    outs = []
+    for k in range(xyz_seq.shape[0]):
+        state, out = slam_step(state, xyz_seq[k], inten_seq[k], times[k], mask, cfg)
+        outs.append(out)
+    stack = lambda f: torch.stack([f(o) for o in outs])
+    empty = torch.zeros(0, device=dev)
+    return SlamOutput(
+        pose=Pose(stack(lambda o: o.pose.q), stack(lambda o: o.pose.t)),
+        odom_pose=Pose(stack(lambda o: o.odom_pose.q),
+                       stack(lambda o: o.odom_pose.t)),
+        skip=stack(lambda o: o.skip),
+        is_keyframe=stack(lambda o: o.is_keyframe),
+        num_good=stack(lambda o: o.num_good),
+        ground_ok=stack(lambda o: o.ground_ok),
+        desc=empty.to(torch.int32), desc_valid=empty.to(torch.bool),
+        feat_xyz=empty,
+        host=[o.host for o in outs],
+    )

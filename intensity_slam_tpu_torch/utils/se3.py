@@ -29,7 +29,9 @@ class Pose(NamedTuple):
     @staticmethod
     def identity(batch_shape=(), dtype=torch.float32, device="cuda") -> "Pose":
         q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-        q[..., 0] = 1.0
+        # fill_ with a Python number; `q[..., 0] = 1.0` would read a device
+        # scalar back to the host
+        q.select(-1, 0).fill_(1.0)
         t = torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device)
         return Pose(q, t)
 
@@ -37,8 +39,9 @@ class Pose(NamedTuple):
         """[..., 4, 4] homogeneous transform."""
         R = quat_to_mat(self.q)
         top = torch.cat([R, self.t[..., :, None]], dim=-1)
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                              device=R.device).expand(top.shape[:-2] + (1, 4))
+        bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=R.dtype,
+                             device=R.device)
+        bottom.select(-1, 3).fill_(1.0)
         return torch.cat([top, bottom], dim=-2)
 
 
@@ -63,8 +66,7 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

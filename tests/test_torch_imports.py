@@ -8,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_nn_tune.py"]
 FORBIDDEN = ("jax", "jaxlib", "intensity_slam_tpu")
 
 
@@ -30,3 +30,7 @@ def test_no_jax_imports(path):
 
 def test_guard_sees_the_package():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py") in FILES
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("ops/curvature.py", "ops/ground.py", "pipeline/geometric.py",
+                "pipeline/slam.py", "utils/index.py", "interop.py"):
+        assert f"intensity_slam_tpu_torch/{mod}" in names

@@ -1,9 +1,9 @@
-"""The CUDA nearest-neighbour kernel (`intensity_slam_tpu_torch/csrc/nn.cu`)
-against its plain PyTorch version, on the card: indices and distances must be
-identical (the kernel is built with --fmad=false and sums in the plain
-version's order).  Marked `cuda`: a CUDA kernel has no CPU mode, so these
-skip where there is no card.  This file imports no JAX, so it also runs on
-the card's machine:
+"""The CUDA nearest-neighbour kernels (`intensity_slam_tpu_torch/csrc/nn.cu`)
+against their plain PyTorch versions, on the card: packs, indices and
+distances must be identical (every operation in the kernel rounds to nearest
+on its own, and sums run in the plain version's order).  Marked `cuda`: a
+CUDA kernel has no CPU mode, so these skip where there is no card.  This file
+imports no JAX, so it also runs on the card's machine:
 
     python -m pytest --noconftest tests/test_torch_nn_cuda.py -m cuda -q
 """
@@ -33,6 +33,14 @@ def _case(name):
         src = np.zeros((8, 3))
         tgt = np.zeros((16, 3))
         mask = np.zeros(16, bool)
+    elif name == "cross_slice_tie":
+        # one point repeated through the whole cloud: every target slice of
+        # every block holds an exact minimum, and index 1 (the first valid
+        # copy) has to win the merge across warps and across blocks
+        tgt = np.tile(np.array([[1.0, 2.0, 3.0]]), (4096, 1))
+        src = rng.randn(300, 3)
+        mask = np.ones(4096, bool)
+        mask[0] = False
     else:  # ties: every target three times, queries on half-integers
         base = rng.randint(-4, 5, size=(500, 3))
         tgt = np.concatenate([base, base, base])
@@ -42,19 +50,62 @@ def _case(name):
             torch.from_numpy(np.asarray(tgt, np.float32)), torch.from_numpy(mask))
 
 
+CASES = ["multi_tile", "unpadded", "all_masked", "ties", "cross_slice_tie"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["multi_tile", "unpadded", "all_masked", "ties"])
+@pytest.mark.parametrize("name", CASES)
 def test_cuda_kernel_matches_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     src, tgt, mask = (t.cuda() for t in _case(name))
-    before = pallas_nn.nearest_neighbor.launches
+    before = (pallas_nn.pack_targets.launches,
+              pallas_nn.nearest_neighbor_packed.launches)
     ki, kd = pallas_nn.nearest_neighbor(src, tgt, mask)
-    assert pallas_nn.nearest_neighbor.launches == before + 1
+    assert (pallas_nn.pack_targets.launches,
+            pallas_nn.nearest_neighbor_packed.launches) == (before[0] + 1,
+                                                            before[1] + 1)
     pi, pd = pallas_nn.nearest_neighbor_plain(src, tgt, mask)
     torch.cuda.synchronize()
     assert torch.equal(ki, pi)
     assert torch.equal(kd, pd)
+    if name == "cross_slice_tie":
+        assert bool((ki == 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_packed_path_matches_plain(name):
+    """Pack once, search twice on fresh sources: the pack equals the plain
+    pack bit for bit, each search equals the plain packed search."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    src, tgt, mask = (t.cuda() for t in _case(name))
+    packed = pallas_nn.pack_targets(tgt, mask)
+    plain = pallas_nn.pack_targets_plain(tgt, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.count, plain.count)
+    assert torch.equal(packed.data.view(torch.int32), plain.data.view(torch.int32))
+    for s in (src, (src + 0.25).contiguous()):
+        ki, kd = pallas_nn.nearest_neighbor_packed(s, packed)
+        pi, pd = pallas_nn.nearest_neighbor_packed_plain(s, plain)
+        ui, ud = pallas_nn.nearest_neighbor_plain(s, tgt, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kd, pd)
+        assert torch.equal(ki, ui) and torch.equal(kd, ud)
+
+
+@pytest.mark.cuda
+def test_cuda_argmin_takes_first_minimum():
+    """`torch.argmin` on the card must take the first of equal minima, as
+    `jnp.argmin` does: the dense correspondence searches of the geometric
+    fallback rest on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    d = torch.full((64, 8192), 5.0, device="cuda")
+    d[:, 4097::3] = 1.0
+    assert bool((torch.argmin(d, dim=1) == 4097).all())
+    assert bool((torch.argmax(-d, dim=1) == 4097).all())
 
 
 @pytest.mark.cuda
