@@ -20,32 +20,47 @@ Phases (any failure exits non-zero before the result lines are printed):
    launch floor), the plain versions and `torch.cdist(...).min(1)` (a
    yardstick the port never calls); and the search's device-side duration
    with `torch.profiler`;
-3. small: the slice at small_test_config on the CPU and on the card from the
-   same scans — the same keyframes, skips and loop decisions;
-4. fallback: `slam_step` at full width (SlamConfig() defaults) over an
+3. grid: the voxel grid-hash map at full width (32768 sets x 4 ways x 8
+   slots): one rendered frame, downsampled at the ground and at the corner
+   voxel size, and one 2 097 152-point rebuild batch (the first of the two
+   clouds at 1024 keyframe poses)
+   are inserted on the CPU and on the card, then the frame's cloud is
+   inserted into the rebuilt map; `way_keys`, `valid`, `num_points` must be
+   equal and `pts` bit-equal, and `knn` (8 and 27 cells) must select the same
+   points at bit-equal distances.  Then times by CUDA events and device
+   kernels per call of `knn`, `insert` and `evict_far`;
+4. small: `SlamSystem` at small_test_config on the CPU and on the card from
+   the same scans: the same keyframes, skips and loop decisions;
+5. fallback: `slam_step` at full width (SlamConfig() defaults) over an
    8-frame corridor rendered on the card with the intensity set to a
    constant, so that the intensity stream skips every frame and the
    geometric fallback carries the pose: every frame must skip, the end
    position must lie within 0.35 m of the rendered trajectory, ground must
    be ok, and the same sequence at small_test_config must take the same
    decisions on the CPU and on the card;
-5. slice: the slice at full width — SlamConfig() defaults (64x1024 scans,
-   1024 features, 2048-point keyframe clouds, 1024 keyframes, so each PGO
-   solve is the dense 6144-dim one) with only the two recency exclusions
-   shortened for a 38-frame sequence — over the out-and-back of
-   tests/test_loop_closure.py rendered on the card.  Both kernels must
-   launch on this path (1 pack and 33 searches per ICP verification).
+6. slice: the main path at full width, `SlamSystem(cfg).process(...)` per
+   frame, with SlamConfig() defaults (64x1024 scans, 1024 features,
+   2048-point keyframe clouds, 1024 keyframes, so each PGO solve is the
+   dense 6144-dim one, two voxel maps of 131 073 cells) and only the two
+   recency exclusions shortened for a 38-frame sequence, over the
+   out-and-back of tests/test_loop_closure.py rendered on the card.  Both
+   kernels must launch on this path (1 pack and 33 searches per ICP
+   verification).  Checked: at least 8 keyframes, one accepted loop from the
+   return leg to the start, at least 16 plane residuals on every frame after
+   the first, the ground map growing on every frame and changed by the
+   rebuild at the accepted loop only, a finite 38-row `trajectory()` whose
+   end lies within 0.5 m of the rendered end.
 
-The slice is the composition of `intensity_slam_tpu/pipeline/fused.py:159-168`
-minus scan-to-map: `slam_step` every frame (intensity odometry, curvature
-features, geometric fallback on a skipped frame, mux, ground RANSAC),
-`loop.backend_step` on every keyframe with the merged odometry pose as the
-mapping pose.
+Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
+curvature features, geometric fallback on a skipped frame, mux, ground
+RANSAC, scan-to-map), on a keyframe `loop.keyframe_core` with the
+scan-to-map pose, at an accepted loop the correction feedback and the map
+rebuild, and the ring-log append.
 
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-    python3 chip_smoke.py --phase kernel|small|fallback|slice
+    python3 chip_smoke.py --phase kernel|grid|small|fallback|slice
 
 builds the kernels and runs that one phase alone (no result lines).
 
@@ -74,8 +89,9 @@ import torch
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import pallas_nn, projection, voxel
-from intensity_slam_tpu_torch.pipeline import loop, odometry, slam
+from intensity_slam_tpu_torch.ops import grid_hash, pallas_nn, projection, voxel
+from intensity_slam_tpu_torch.pipeline import loop, mapping, odometry, slam
+from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.utils import se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
@@ -151,11 +167,29 @@ def sync_counter(enabled: bool):
                  for w in caught if "synchroniz" in str(w.message))
 
 
-def run_slam(cfg, xyz, inten, device, count_syncs=False, on_keyframe=None) -> dict:
-    """`slam_step` over a sequence, with `on_keyframe(k, out)` called on
-    every keyframe.  The step reads one device value set per frame (skip,
-    has_prev and the keyframe flag, together); every other output is read
-    after the sequence."""
+@contextlib.contextmanager
+def captured(mod, name: str, keep):
+    """Record `keep(result)` of every call of `mod.name` for the length of
+    the block; yields the list."""
+    fn = getattr(mod, name)
+    kept = []
+
+    def recording(*a, **k):
+        out = fn(*a, **k)
+        kept.append(keep(out))
+        return out
+
+    setattr(mod, name, recording)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, fn)
+
+
+def run_slam(cfg, xyz, inten, device, count_syncs=False) -> dict:
+    """`slam_step` over a sequence.  The step reads one device value set per
+    frame (skip, has_prev and the keyframe flag, together) besides its
+    solvers' own reads; every other output is read after the sequence."""
     device = torch.device(device)
     mask = projection.detection_mask(cfg.sensor, device=device)
     st = slam.init_state(cfg, seed=0, device=device)
@@ -168,39 +202,46 @@ def run_slam(cfg, xyz, inten, device, count_syncs=False, on_keyframe=None) -> di
             _sync_untracked(device)
             t_step.append(time.perf_counter() - t0)
             outs.append(out)
-            if on_keyframe is not None and out.host.is_keyframe:
-                on_keyframe(k, out)
     return dict(
         frames=[(o.host.skip, o.host.is_keyframe) for o in outs],
         ground_ok=[bool(o.ground_ok) for o in outs],
         t=torch.stack([o.odom_pose.t for o in outs]).cpu(),
         q=torch.stack([o.odom_pose.q for o in outs]).cpu(),
+        map_t=torch.stack([o.pose.t for o in outs]).cpu(),
+        plane=[int(o.num_plane_residuals) for o in outs],
         t_step=t_step, syncs=sum(sync_sites.values()), sync_sites=sync_sites)
 
 
-def run_slice(cfg, xyz, inten, device, count_syncs=False) -> dict:
-    """`slam_step` on every frame, the keyframe back-end on every keyframe
-    with the merged odometry pose as the mapping pose."""
+def run_system(cfg, xyz, inten, device, count_syncs=False) -> dict:
+    """The main path: `SlamSystem.process` on every frame.  Nothing is read
+    from the device inside the loop beyond what the step reads itself; the
+    per-frame scalars are fetched after the sequence."""
     device = torch.device(device)
-    back = [loop.init_state(cfg, device=device)]
-    kfs, t_back = [], []
-
-    def on_keyframe(k, out):
-        t0 = time.perf_counter()
-        valid = torch.sqrt(torch.sum(xyz[k] * xyz[k], -1)) >= cfg.sensor.min_range
-        back[0], bout = loop.backend_step(
-            back[0], xyz[k], valid, out.desc, out.desc_valid, out.pose,
-            k * 0.1, cfg, feat_xyz=out.feat_xyz, scan_int=inten[k])
-        _sync_untracked(device)
-        t_back.append(time.perf_counter() - t0)
-        kfs.append((k, bout))
-
-    r = run_slam(cfg, xyz, inten, device, count_syncs, on_keyframe)
-    r["kfs"] = [dict(kf=i, frame=k, candidate=bool(b.sc_found),
-                     accepted=bool(b.loop_found), loop_idx=int(b.loop_idx),
-                     fitness=float(b.icp_fitness)) for i, (k, b) in enumerate(kfs)]
-    r["back"], r["t_back"] = back[0], t_back
-    return r
+    system = SlamSystem(cfg, seed=0, device=device)
+    infos, t_step, after = [], [], []
+    keep = lambda r: (r[1].num_plane_residuals, r[1].map_points)
+    with captured(slam.mapping, "mapping_step", keep) as mapped, \
+            sync_counter(count_syncs) as sync_sites:
+        for k in range(xyz.shape[0]):
+            _sync_untracked(device)
+            t0 = time.perf_counter()
+            infos.append(system.process(xyz[k], inten[k], k * 0.1))
+            _sync_untracked(device)
+            t_step.append(time.perf_counter() - t0)
+            after.append(system.state.slam.mapping.ground_map.num_points)
+    frames = [(bool(i.skip), bool(i.is_keyframe)) for i in infos]
+    kfs = [dict(kf=int(i.num_kf) - 1, frame=k,
+                candidate=math.isfinite(float(i.icp_fitness)),
+                accepted=bool(i.loop_found), loop_idx=int(i.loop_idx),
+                fitness=float(i.icp_fitness))
+           for k, i in enumerate(infos) if frames[k][1]]
+    return dict(
+        system=system, frames=frames, kfs=kfs, t_step=t_step,
+        plane=[int(p) for p, _ in mapped],
+        map_points=[int(m) for _, m in mapped],       # after the frame's insert
+        map_points_after=[int(a) for a in after],     # after the frame's rebuild
+        traj=system.trajectory(),
+        syncs=sum(sync_sites.values()), sync_sites=sync_sites)
 
 
 def time_cuda(fn, reps=50, warmup=5) -> float:
@@ -386,25 +427,161 @@ def decisions(r: dict):
             [(k["frame"], k["candidate"], k["accepted"], k["loop_idx"]) for k in r["kfs"]])
 
 
+def device_kernels(fn) -> int:
+    """Device kernels (and copies) that one call of `fn` launches, from a
+    `torch.profiler` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    count = 0
+    for _ in range(3):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+        if count:
+            break
+    return count
+
+
+def _same_map(a: grid_hash.VoxelHashMap, b: grid_hash.VoxelHashMap) -> bool:
+    """CPU map `a` against card map `b`: discrete fields equal, points
+    bit-equal."""
+    b = grid_hash.VoxelHashMap(*(t.cpu() for t in b))
+    return (torch.equal(a.way_keys, b.way_keys) and torch.equal(a.valid, b.valid)
+            and torch.equal(a.num_points, b.num_points)
+            and torch.equal(a.pts.view(torch.int32), b.pts.view(torch.int32)))
+
+
+def _same_knn(mc, md, queries, cell: float, k: int) -> bool:
+    ok = True
+    for nb in (8, 27):
+        cs, csq, cv = grid_hash.knn(mc, queries.cpu(), cell, k=k, neighborhood=nb)
+        ds, dsq, dv = grid_hash.knn(md, queries, cell, k=k, neighborhood=nb)
+        ok = ok and (torch.equal(cv, dv.cpu())
+                     and torch.equal(csq.view(torch.int32), dsq.cpu().view(torch.int32))
+                     and torch.equal(cs.view(torch.int32), ds.cpu().view(torch.int32)))
+    return ok
+
+
+def grid_phase(dev) -> None:
+    """The voxel grid-hash map at full width, CPU against the card."""
+    cfg = config.SlamConfig()
+    mc = cfg.mapping
+    S = mc.map_capacity // (4 * 8)
+    K = cfg.loop.max_keyframes
+    traj = loop_trajectory()
+    xyz, _ = synthetic.render_scan(
+        se3.Pose(traj.q[0].to(dev), traj.t[0].to(dev)),
+        synthetic.corridor_world(device=dev), cfg.sensor)
+    valid = torch.sqrt(torch.sum(xyz * xyz, -1)) >= cfg.sensor.min_range
+    g, gm = voxel.voxel_downsample(xyz, valid, mc.ground_voxel, mc.max_query_points)
+    c, cm = voxel.voxel_downsample(xyz, valid, mc.corner_voxel,
+                                   mc.max_query_points // 2)
+    # the rebuild batch: the frame's cloud at K keyframe poses, 0.3 m apart
+    # along +x with a slow yaw, as `rebuild_maps` flattens them
+    kk = torch.arange(K, device=dev, dtype=torch.float32)
+    zero = torch.zeros_like(kk)
+    poses = se3.Pose(se3.so3_exp(torch.stack([zero, zero, 0.002 * kk], -1)),
+                     torch.stack([0.3 * kk, zero, zero], -1))
+    batch = se3.transform_points(poses, g.expand(K, -1, -1)).reshape(-1, 3)
+    bmask = gm.expand(K, -1).reshape(-1)
+    gcell, ccell = 2.0 * mc.ground_voxel, 2.0 * mc.corner_voxel
+    cases = [("frame ground cloud", g, gm, gcell), ("frame corner cloud", c, cm, ccell),
+             ("rebuild batch", batch, bmask, gcell)]
+    maps = {}
+    for name, pts, mask, cell in cases:
+        t0 = time.perf_counter()
+        m_cpu = grid_hash.insert(grid_hash.empty(S, 4, device="cpu"),
+                                 pts.cpu(), mask.cpu(), cell)
+        t_cpu = time.perf_counter() - t0
+        m_dev = grid_hash.insert(grid_hash.empty(S, 4, device=dev), pts, mask, cell)
+        same = _same_map(m_cpu, m_dev)
+        q = pts[:: max(1, pts.shape[0] // 2048)][:2048] + 0.05
+        same_knn = _same_knn(m_cpu, m_dev, q, cell, mc.knn)
+        print(f"grid {name}: {pts.shape[0]} points ({int(mask.sum())} masked in), map "
+              f"points {int(m_dev.num_points)}, ways claimed "
+              f"{int((m_dev.way_keys >= 0).sum())} of {S * 4}, equal to the CPU's "
+              f"{same}, knn (8 and 27 cells) equal {same_knn}; the CPU insert took "
+              f"{t_cpu:.2f} s")
+        check(same, f"grid-hash insert of the {name} differs between CPU and card")
+        check(same_knn, f"grid-hash knn after the {name} differs between CPU and card")
+        maps[name] = (m_cpu, m_dev)
+    # an insert into an OCCUPIED map: the frame's cloud, moved, into the
+    # rebuilt map (the occupant comparison and the hit path)
+    m_cpu, m_dev = maps["rebuild batch"]
+    moved = g + torch.tensor([0.37, 1.9, 0.02], device=dev)
+    n_cpu = grid_hash.insert(m_cpu, moved.cpu(), gm.cpu(), gcell)
+    n_dev = grid_hash.insert(m_dev, moved, gm, gcell)
+    same = _same_map(n_cpu, n_dev) and _same_knn(n_cpu, n_dev, moved, gcell, mc.knn)
+    radius = 0.15 * K              # half of the batch's extent along +x
+    e_cpu = grid_hash.evict_far(n_cpu, torch.zeros(3), radius)
+    e_dev = grid_hash.evict_far(n_dev, torch.zeros(3, device=dev), radius)
+    same_evict = _same_map(e_cpu, e_dev)
+    print(f"grid insert into the rebuilt map: added "
+          f"{int(n_dev.num_points) - int(m_dev.num_points)} points, equal to the CPU's "
+          f"{same}; evict_far beyond {radius:.1f} m keeps {int(e_dev.num_points)} of "
+          f"{int(n_dev.num_points)} points and {int((e_dev.way_keys >= 0).sum())} "
+          f"ways, equal {same_evict}")
+    check(same, "insert into an occupied map differs between CPU and card")
+    check(same_evict, "evict_far differs between CPU and card")
+    check(int(e_dev.num_points) < int(n_dev.num_points), "evict_far evicted nothing")
+
+    q_world = moved
+    over = n_dev.num_points > 0
+    calls = [
+        (f"knn ({moved.shape[0]} queries, 8 cells, k={mc.knn})", 50,
+         lambda: grid_hash.knn(n_dev, q_world, gcell, k=mc.knn, neighborhood=8)),
+        (f"knn ({moved.shape[0]} queries, 27 cells, k={mc.knn})", 50,
+         lambda: grid_hash.knn(n_dev, q_world, gcell, k=mc.knn, neighborhood=27)),
+        (f"insert ({moved.shape[0]}-point frame cloud)", 50,
+         lambda: grid_hash.insert(m_dev, moved, gm, gcell)),
+        (f"insert ({batch.shape[0]}-point rebuild batch)", 5,
+         lambda: grid_hash.insert(grid_hash.empty(S, 4, device=dev), batch, bmask, gcell)),
+        ("evict_far (conditional pass)", 50,
+         lambda: grid_hash.evict_far(n_dev, q_world[0], mc.map_keep_radius, when=over)),
+    ]
+    print("grid timing (CUDA events, median of single calls; device kernels per "
+          "call from torch.profiler):")
+    for name, reps, fn in calls:
+        ms = time_cuda(fn, reps=reps, warmup=2)
+        print(f"  {name}: {ms:.3f} ms, {device_kernels(fn)} device kernels")
+
+
 def small_phase(dev) -> None:
-    """The slice at small_test_config, CPU (plain versions) vs the card."""
+    """`SlamSystem` at small_test_config, CPU (plain versions) vs the card."""
     cfg = slice_config(config.small_test_config())
     cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, max_keyframes=64,
                                                keyframe_cloud_size=512))
     xyz, inten = synthetic.render_sequence(loop_trajectory(),
                                            synthetic.corridor_world(device="cpu"),
                                            cfg.sensor)
-    ref = run_slice(cfg, xyz, inten, "cpu")
-    got = run_slice(cfg, xyz.to(dev), inten.to(dev), dev)
+    ref = run_system(cfg, xyz, inten, "cpu")
+    got = run_system(cfg, xyz.to(dev), inten.to(dev), dev)
     same = decisions(ref) == decisions(got)
-    pr, pg = ref["back"].graph.poses.t, got["back"].graph.poses.t.cpu()
+    pr = ref["system"].state.backend.graph.poses.t
+    pg = got["system"].state.backend.graph.poses.t.cpu()
     dpose = float((pr - pg).abs().max())
+    dtraj = float(abs(ref["traj"] - got["traj"]).max())
     n_loops = sum(k["accepted"] for k in got["kfs"])
-    print(f"small slice: keyframes {len(got['kfs'])} (cpu {len(ref['kfs'])}), "
+    print(f"small system: keyframes {len(got['kfs'])} (cpu {len(ref['kfs'])}), "
           f"accepted loops {n_loops}, same decisions {same}, "
-          f"max |graph t| diff vs cpu {dpose:.3g} m")
-    if not same or dpose > 0.1 or n_loops < 1:
-        raise SmokeFailure("small slice on the card disagrees with the CPU run")
+          f"max |graph t| diff vs cpu {dpose:.3g} m, max |trajectory| diff "
+          f"{dtraj:.3g} m, ground map points {got['map_points_after'][-1]} "
+          f"(cpu {ref['map_points_after'][-1]})")
+    if not same or dpose > 0.1 or dtraj > 0.1 or n_loops < 1:
+        raise SmokeFailure("small system on the card disagrees with the CPU run")
+
+
+def state_bytes(system) -> tuple[int, int]:
+    """Bytes held by the two voxel maps and by the keyframe store."""
+    size = lambda t: t.numel() * t.element_size()
+    m = system.state.slam.mapping
+    maps = sum(size(t) for vm in (m.ground_map, m.corner_map) for t in vm)
+    b = system.state.backend
+    store = sum(size(getattr(b, f)) for f in b._fields
+                if f.startswith("kf_") and isinstance(getattr(b, f), torch.Tensor))
+    return maps, store
 
 
 def slice_phase(dev) -> dict:
@@ -413,61 +590,103 @@ def slice_phase(dev) -> dict:
     world = synthetic.corridor_world(device=dev)
     xyz, inten = synthetic.render_sequence(
         se3.Pose(traj.q.to(dev), traj.t.to(dev)), world, cfg.sensor)
+    n = xyz.shape[0]
     check(xyz.shape == (38, cfg.sensor.num_points, 3), f"rendered {tuple(xyz.shape)}")
     # warm-up: one whole run (library loads, solver and autodiff set-up)
-    run_slice(cfg, xyz, inten, dev)
+    run_system(cfg, xyz, inten, dev)
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    r = run_slice(cfg, xyz, inten, dev)
+    r = run_system(cfg, xyz, inten, dev)
     launches = read_launches()
-    # the same path again with every host sync counted (the sync debug
-    # mode's warnings slow the host, so this run is not timed)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the same path with each stage synchronized and timed
+    with stage_timers(SYSTEM_STAGES) as stage:
+        rt = run_system(cfg, xyz, inten, dev)
+    # and with every host sync counted (the sync debug mode's warnings slow
+    # the host, so this run is not timed)
     reset_launches()
-    rs = run_slice(cfg, xyz, inten, dev, count_syncs=True)
+    rs = run_system(cfg, xyz, inten, dev, count_syncs=True)
     check(read_launches() == launches,
           "second run launched the kernel another number of times")
-    check(decisions(rs) == decisions(r), "second run took other decisions")
-    r["syncs"], r["sync_sites"] = rs["syncs"], rs["sync_sites"]
-    back = r["back"]
-    n = int(back.graph.num_nodes)
-    poses = torch.cat([back.graph.poses.q[:n], back.graph.poses.t[:n]], -1)
-    skips = sum(f[0] for f in r["frames"])
+    check(decisions(rs) == decisions(r) == decisions(rt),
+          "a repeated run took other decisions")
+    system = r["system"]
+    back = system.state.backend
+    nk = int(back.graph.num_nodes)
+    poses = torch.cat([back.graph.poses.q[:nk], back.graph.poses.t[:nk]], -1)
+    skips = [k for k, f in enumerate(r["frames"]) if f[0]]
     cands = [k for k in r["kfs"] if k["candidate"]]
     acc = [k for k in r["kfs"] if k["accepted"]]
-    ground_ok = sum(r["ground_ok"])
-    print(f"slice (full width): frames {len(r['frames'])}, keyframes {len(r['kfs'])}, "
-          f"skips {skips} at frames {[k for k, f in enumerate(r['frames']) if f[0]]} "
-          f"(frame 0 has no previous frame, so it takes no fallback solve), "
-          f"ground ok {ground_ok}/{len(r['frames'])}")
+    kf_frames = {k["frame"] for k in r["kfs"]}
+    t_kf = [t for k, t in enumerate(r["t_step"]) if k in kf_frames]
+    t_other = [t for k, t in enumerate(r["t_step"]) if k not in kf_frames]
+    gt_end = traj.t[-1] - traj.t[0]            # the first pose has no rotation
+    end_err = float(torch.linalg.norm(torch.from_numpy(r["traj"][-1]) - gt_end))
+    maps_b, store_b = state_bytes(system)
+    print(f"slice (full width, SlamSystem.process): frames {n}, keyframes "
+          f"{len(r['kfs'])}, skips {len(skips)} at frames {skips} (frame 0 has no "
+          f"previous frame, so it takes no fallback solve), skips in the log "
+          f"{system.num_skips}")
     for k in cands:
         print(f"  candidate: keyframe {k['kf']} (frame {k['frame']}) -> keyframe "
               f"{k['loop_idx']}, icp fitness {k['fitness']:.6g}, "
               f"{'accepted' if k['accepted'] else 'rejected'}")
-    print(f"  candidates {len(cands)}, accepted loops {len(acc)}, "
-          f"num_loops {int(back.graph.num_loops)}, nn kernel launches {launches['nn']}, pack kernel launches "
-          f"{launches['pack']}")
-    print(f"  median ms per slam_step {1e3 * statistics.median(r['t_step']):.3f}, "
-          f"per backend_step {1e3 * statistics.median(r['t_back']):.3f} "
-          f"(max {1e3 * max(r['t_back']):.3f}, the accepted-loop keyframe)")
-    print(f"  host syncs {r['syncs']} in {len(r['frames'])} frames = "
-          f"{r['syncs'] / len(r['frames']):.2f} per frame; by call site:")
-    print_sync_sites(r["sync_sites"])
-    print("  (the JAX package on the CPU, on its own renders: 10 keyframes, "
-          "1 skip, loop keyframe 7 -> 2 accepted)")
+    print(f"  candidates {len(cands)}, accepted loops {len(acc)}, loop table "
+          f"{[(a, b) for a, b, _ in system.loops]}, nn kernel launches "
+          f"{launches['nn']}, pack kernel launches {launches['pack']}")
+    print(f"  plane residuals per frame {r['plane']}")
+    print(f"  ground map points after each frame's insert {r['map_points']}")
+    print(f"  trajectory: {r['traj'].shape[0]} rows, end {r['traj'][-1].round(3).tolist()} "
+          f"against the rendered {[round(float(v), 3) for v in gt_end]}, error "
+          f"{end_err:.4f} m; the merged odometry alone ends at "
+          f"{system.odom_trajectory()[-1].round(3).tolist()}")
+    print(f"  median ms per process {1e3 * statistics.median(r['t_step']):.3f} "
+          f"(non-keyframes {1e3 * statistics.median(t_other):.3f}, keyframes "
+          f"{1e3 * statistics.median(t_kf):.3f}, max {1e3 * max(r['t_step']):.3f} at "
+          f"frame {r['t_step'].index(max(r['t_step']))}); peak device memory "
+          f"{peak_mb:.0f} MiB; the maps hold {maps_b} bytes, the keyframe store "
+          f"{store_b} bytes")
+    print("  each stage synchronized (a separate run; stages nest):")
+    print_stage_rows([("process", rt["t_step"])]
+                     + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
+    print(f"  host syncs {rs['syncs']} in {n} frames = {rs['syncs'] / n:.2f} per "
+          f"frame; by call site:")
+    print_sync_sites(rs["sync_sites"])
     check(bool(torch.isfinite(poses).all()), "non-finite graph pose")
-    check(n == len(r["kfs"]), "graph nodes != keyframes")
-    check(ground_ok == len(r["frames"]), "ground extraction failed on a frame")
+    check(nk == len(r["kfs"]) >= 8, f"{len(r['kfs'])} keyframes, {nk} graph nodes")
+    check(len(acc) == 1 and acc[0]["kf"] - acc[0]["loop_idx"] >= 4,
+          f"accepted loops: {acc}")
+    check(acc[0]["frame"] > 14 + 8 and acc[0]["loop_idx"] <= 4,
+          "the loop does not join the return leg to the start")
     check(launches["nn"] >= 33, f"nn kernel launched {launches['nn']} times on the slice")
     check(launches["pack"] >= 1, "pack kernel was not launched on the slice")
     check(all(k["fitness"] < cfg.loop.icp_fitness_score for k in acc),
           "an accepted loop above the fitness gate")
+    check(all(p >= 16 for p in r["plane"][1:]),
+          f"fewer than 16 plane residuals on a frame: {r['plane']}")
+    loop_frame = acc[0]["frame"]
+    grown, rebuilt = r["map_points"], r["map_points_after"]
+    check(all(grown[k] >= rebuilt[k - 1] for k in range(1, n)) and grown[0] > 0,
+          "the ground map shrank on an insert")
+    check(all((grown[k] != rebuilt[k]) == (k == loop_frame) for k in range(n)),
+          "the ground map was rebuilt on another frame than the accepted loop's")
+    check(r["traj"].shape == (n, 3) and bool(torch.isfinite(
+        torch.from_numpy(r["traj"])).all()), "trajectory is not 38 finite rows")
+    check(end_err < 0.5, f"trajectory ends {end_err:.3f} m from the rendered end")
     return dict(launches=launches)
 
 
 SLAM_STAGES = [(slam.odometry, "odometry_step"),
                (slam.curvature, "extract_features"),
                (slam.geometric, "geometric_delta"),
-               (slam.ground, "extract_ground")]
-SLICE_STAGES = SLAM_STAGES + [
+               (slam.ground, "extract_ground"),
+               (slam.mapping, "mapping_step")]
+MAP_STAGES = [(mapping.grid_hash, "knn"), (mapping.grid_hash, "insert"),
+              (mapping.grid_hash, "evict_far"), (mapping, "voxel_downsample"),
+              (mapping, "_fit_planes"), (mapping, "fit_lines"),
+              (mapping, "rebuild_maps")]
+SYSTEM_STAGES = SLAM_STAGES + MAP_STAGES + [
+    (slam, "slam_step"), (loop, "keyframe_core"), (loop, "write_slot"),
     (odometry.F, "extract"), (odometry.F, "match_retry"),
     (odometry.solver, "solve_pose"), (loop, "voxel_downsample"),
     (loop.scancontext, "detect_loop"), (loop.bow, "detect_loop"),
@@ -564,10 +783,12 @@ def fallback_phase(dev) -> None:
     gt = traj.t - traj.t[0]
     end_err = float(torch.sqrt(torch.sum((r["t"][-1] - gt[-1]) ** 2)))
     step_err = float(torch.sqrt(torch.sum((r["t"] - gt) ** 2, -1)).max())
+    map_err = float(torch.sqrt(torch.sum((r["map_t"][-1] - gt[-1]) ** 2)))
     print(f"fallback (full width, {n} frames, constant intensity): skips "
           f"{sum(f[0] for f in r['frames'])}/{n}, ground ok {sum(r['ground_ok'])}/{n}, "
-          f"end position error {end_err:.4f} m (largest over the frames "
-          f"{step_err:.4f} m), peak device memory {peak_mb:.0f} MiB")
+          f"end position error of the odometry {end_err:.4f} m (largest over the "
+          f"frames {step_err:.4f} m), of the scan-to-map pose {map_err:.4f} m, plane "
+          f"residuals {r['plane']}, peak device memory {peak_mb:.0f} MiB")
     print(f"  median ms per slam_step {1e3 * statistics.median(r['t_step']):.3f} "
           f"(frames 1..{n - 1}, which run the fallback solve: "
           f"{1e3 * statistics.median(r['t_step'][1:]):.3f}); each stage synchronized:")
@@ -580,6 +801,8 @@ def fallback_phase(dev) -> None:
     check(bool(torch.isfinite(r["t"]).all() and torch.isfinite(r["q"]).all()),
           "fallback: non-finite pose")
     check(end_err < 0.35, f"fallback lost track: end position error {end_err:.3f} m")
+    check(map_err < 0.35, f"fallback: scan-to-map pose ends {map_err:.3f} m off")
+    check(bool(torch.isfinite(r["map_t"]).all()), "fallback: non-finite map pose")
 
 
 def profile_phase(dev) -> None:
@@ -588,19 +811,19 @@ def profile_phase(dev) -> None:
     xyz, inten = synthetic.render_sequence(
         se3.Pose(traj.q.to(dev), traj.t.to(dev)),
         synthetic.corridor_world(device=dev), cfg.sensor)
-    run_slice(cfg, xyz, inten, dev)               # warm-up, as in slice_phase
-    with stage_timers(SLICE_STAGES) as stage:
-        r = run_slice(cfg, xyz, inten, dev)
+    run_system(cfg, xyz, inten, dev)              # warm-up, as in slice_phase
+    with stage_timers(SYSTEM_STAGES) as stage:
+        r = run_system(cfg, xyz, inten, dev)
     print(f"stage times, full-width slice ({len(r['frames'])} frames, "
-          f"{len(r['kfs'])} keyframes; each stage synchronized):")
-    rows = [("slam_step", r["t_step"]), ("backend_step", r["t_back"])]
-    print_stage_rows(rows + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
+          f"{len(r['kfs'])} keyframes; each stage synchronized, stages nest):")
+    print_stage_rows([("process", r["t_step"])]
+                     + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_slice(cfg, xyz, inten, dev)
+        run_system(cfg, xyz, inten, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -665,12 +888,14 @@ def main() -> int:
     if only is not None:
         # one phase alone (after the build): prints that phase's lines only
         phases = {"kernel": lambda: kernel_phase(dev, cfg),
+                  "grid": lambda: grid_phase(dev),
                   "small": lambda: small_phase(dev),
                   "fallback": lambda: fallback_phase(dev),
                   "slice": lambda: slice_phase(dev)}
         phases[only]()
         return 0
     kern = kernel_phase(dev, cfg)
+    grid_phase(dev)
     small_phase(dev)
     fallback_phase(dev)
     sl = slice_phase(dev)

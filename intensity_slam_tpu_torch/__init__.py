@@ -17,14 +17,16 @@ Rules the whole package keeps:
   `torch.backends.cuda.matmul.allow_tf32 = False` and
   `torch.backends.cudnn.allow_tf32 = False`.
 
-Ported so far (slices 1 and 2): `utils.se3`, `utils.index` (reads and
-writes at a device-side index without a host read), `ops.projection`,
-`ops.conv2d`, `ops.features`, `ops.solver`, `ops.curvature`, `ops.ground`,
-`ops.grid_hash` (the key mix), `ops.voxel`, `ops.scancontext`, `ops.bow`,
-`ops.pallas_nn` (CUDA nearest-neighbour kernels, `csrc/nn.cu`), `ops.icp`,
-`pipeline.odometry`, `pipeline.geometric`, `pipeline.slam` (the per-frame
-step up to, and without, scan-to-map), `pipeline.posegraph`,
-`pipeline.loop`, `io.synthetic` (noise-free renderer) and `interop`.
+Ported so far (the main path, slices 1 to 4): `utils.se3`, `utils.index`
+(reads and writes at a device-side index without a host read),
+`ops.projection`, `ops.conv2d`, `ops.features`, `ops.solver`,
+`ops.curvature`, `ops.ground`, `ops.grid_hash` (the voxel map), `ops.voxel`,
+`ops.scancontext`, `ops.bow`, `ops.pallas_nn` (CUDA nearest-neighbour
+kernels, `csrc/nn.cu`), `ops.icp`, `pipeline.odometry`, `pipeline.geometric`,
+`pipeline.mapping` (scan-to-map), `pipeline.slam` (the per-frame step),
+`pipeline.posegraph`, `pipeline.loop`, `pipeline.fused` (the fused step and
+its ring log), `pipeline.system` (`SlamSystem`), `runtime.spill`,
+`io.synthetic` (noise-free renderer) and `interop`.
 """
 
 import torch

@@ -11,9 +11,11 @@ the same bit pattern; `state_to_numpy` returns them as uint32 again for the
 fields listed in `UINT32_FIELDS`.
 
 `slam_state_from_numpy` and `slam_state_to_numpy` carry the per-frame
-`SlamState`: the JAX state's `mapping` (scan-to-map, not ported yet) and
-`rng` (a `jax.random` key) have no counterpart, so the port's state gets a
-fresh `torch.Generator` and the way back returns a dict of the shared fields.
+`SlamState`: only the JAX state's `rng` (a `jax.random` key) has no
+counterpart, so the port's state gets a fresh `torch.Generator` and the way
+back returns a dict of the shared fields.  `state_from_numpy` takes a whole
+JAX `FusedState` the same way, so the port can start in the middle of a
+reference run.
 """
 
 from __future__ import annotations
@@ -24,17 +26,19 @@ import numpy as np
 import torch
 
 from . import config as C
-from .ops import curvature, features, ground
-from .pipeline import geometric, loop, odometry, posegraph, slam
+from .ops import curvature, features, grid_hash, ground
+from .pipeline import (fused, geometric, loop, mapping, odometry, posegraph,
+                       slam)
 from .utils import se3
 
 UINT32_FIELDS = frozenset({"desc", "prev_desc", "kf_sig", "kf_feat_desc",
-                           "feat_desc"})
+                           "feat_desc", "win_desc"})
 
 _TYPES = {t.__name__: t for t in (
     se3.Pose, features.Features, odometry.OdometryState, posegraph.PoseGraph,
     loop.BackendState, geometric.GeometricState, curvature.FeatureClouds,
-    ground.GroundResult)}
+    ground.GroundResult, grid_hash.VoxelHashMap, mapping.MappingState,
+    fused.FrameLog, fused.FusedState)}
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -44,12 +48,16 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def state_from_numpy(tree, device="cuda"):
+def state_from_numpy(tree, device="cuda", seed: int = 0):
     """Nested NamedTuple of numpy arrays -> the port's NamedTuple of tensors
-    (same class names and fields)."""
+    (same class names and fields).  A `SlamState` inside (or the dict that
+    `slam_state_to_numpy` makes of one) goes through
+    `slam_state_from_numpy`, its generator seeded with `seed`."""
+    if isinstance(tree, dict) or type(tree).__name__ == "SlamState":
+        return slam_state_from_numpy(tree, seed=seed, device=device)
     if hasattr(tree, "_fields"):
         cls = _TYPES[type(tree).__name__]
-        return cls(**{f: state_from_numpy(getattr(tree, f), device)
+        return cls(**{f: state_from_numpy(getattr(tree, f), device, seed)
                       for f in tree._fields})
     if tree is None:
         return None
@@ -59,6 +67,8 @@ def state_from_numpy(tree, device="cuda"):
 def state_to_numpy(state, _name: str = ""):
     """The port's NamedTuple of tensors -> the same structure of numpy
     arrays (uint32 words restored for `UINT32_FIELDS`)."""
+    if isinstance(state, slam.SlamState):
+        return slam_state_to_numpy(state)
     if hasattr(state, "_fields"):
         return type(state)(**{f: state_to_numpy(getattr(state, f), f)
                               for f in state._fields})
@@ -88,19 +98,19 @@ def config_from_dict(d: dict) -> C.SlamConfig:
     return _build(C.SlamConfig, d)
 
 
-_SLAM_SHARED = ("odo", "geo", "merged_pose", "last_delta")
+_SLAM_SHARED = ("odo", "geo", "mapping", "merged_pose", "last_delta")
 
 
 def slam_state_from_numpy(tree, seed: int = 0, device="cuda") -> slam.SlamState:
     """The JAX package's `SlamState` as numpy (any object with `odo`, `geo`,
-    `merged_pose`, `last_delta`) -> the port's `SlamState`.  `mapping` and
-    `rng` are left behind; the generator is seeded with `seed`."""
+    `mapping`, `merged_pose`, `last_delta`, or a dict of them) -> the port's
+    `SlamState`.  `rng` is left behind; the generator is seeded with `seed`."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    get = tree.get if isinstance(tree, dict) else lambda f: getattr(tree, f)
     return slam.SlamState(
-        gen=gen, **{f: state_from_numpy(getattr(tree, f), device)
-                    for f in _SLAM_SHARED})
+        gen=gen, **{f: state_from_numpy(get(f), device) for f in _SLAM_SHARED})
 
 
 def slam_state_to_numpy(state: slam.SlamState) -> dict:

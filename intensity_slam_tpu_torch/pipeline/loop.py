@@ -17,7 +17,8 @@ reference's back-end threads CS-4/CS-5, `src/intensity_feature_tracker.cpp:
 
 The JAX package's three `lax.cond`s (capacity compaction, "candidate found",
 "loop accepted") are Python `if`s on device scalars here: one host read
-each, plus one inside `posegraph.consistent_loop_mask`.  Functions return
+each, plus one inside `posegraph.consistent_loop_mask`.  `BackendOutput`
+hands the last one out (`accepted`), so a caller need not read it again.  Functions return
 new state tensors and leave their inputs untouched.
 """
 
@@ -104,6 +105,8 @@ class BackendOutput(NamedTuple):
     icp_inlier_frac: torch.Tensor  # () f32
     icp_int_corr: torch.Tensor   # () f32 (-2 when nothing was verified)
     compacted: torch.Tensor      # () bool — store decimated before ingest
+    accepted: bool = False       # `loop_found` as `keyframe_core` read it on
+    # the host, for a caller that branches on it (the map rebuild)
 
 
 _PAYLOAD_FIELDS = (
@@ -418,7 +421,8 @@ def keyframe_core(
         & pcm_ok
     )
     g_out = g
-    if bool(accept):
+    accepted = bool(accept)
+    if accepted:
         g_out = g_cand
         if lc.online_pgo:
             g_out = posegraph.optimize(
@@ -444,6 +448,7 @@ def keyframe_core(
         icp_inlier_frac=res.inlier_frac,
         icp_int_corr=int_corr,
         compacted=need_compact,
+        accepted=accepted,
     )
     return state, slot, bout
 

@@ -1,4 +1,4 @@
-"""The per-frame SLAM step, up to (and without) scan-to-map.
+"""The per-frame SLAM step: odometry stream + scan-to-map in one call.
 
 PyTorch counterpart of `intensity_slam_tpu/pipeline/slam.py`:
 
@@ -8,17 +8,12 @@ PyTorch counterpart of `intensity_slam_tpu/pipeline/slam.py`:
             skipped and a previous frame exists
          -> odometry mux (C13): intensity delta unless skipped
          -> ground extraction (C2)
+         -> scan-to-map refine + map insert (C14)
          -> velocity EMA for the next frame's undistortion
 
 The mux contract (`odom_handler_node.cpp:96-131`): per frame, compose the
 incremental delta from the intensity stream when it is valid, else from the
 geometric fallback stream.
-
-NOT PORTED YET: the scan-to-map refinement (`mapping.mapping_step`,
-`slam.py:147-154` of the JAX package).  Until it is, `SlamOutput.pose` is
-the merged odometry pose (equal to `odom_pose`), and the mapping outputs of
-the JAX `SlamOutput` (`num_plane_residuals`, `num_window_residuals`,
-`map_points`, `ground_ds*`, `corner_ds*`) are absent.
 
 Where the JAX step carries a `jax.random` key for the ground RANSAC, this
 state carries a `torch.Generator`; a caller may hand the draws in instead
@@ -37,12 +32,13 @@ from ..config import SlamConfig
 from ..ops import curvature, ground, projection
 from ..utils import se3
 from ..utils.se3 import Pose
-from . import geometric, odometry
+from . import geometric, mapping, odometry
 
 
 class SlamState(NamedTuple):
     odo: odometry.OdometryState
     geo: geometric.GeometricState
+    mapping: mapping.MappingState
     merged_pose: Pose           # mux-integrated odometry (odom frame)
     gen: torch.Generator        # source of the ground RANSAC's draws
     last_delta: Pose            # VELOCITY estimate: EMA (0.5 mix) of the
@@ -61,17 +57,25 @@ class HostFlags(NamedTuple):
 
 
 class SlamOutput(NamedTuple):
-    pose: Pose                  # the merged odometry pose until scan-to-map
-    # is ported (then: the mapping-refined map-frame pose)
-    odom_pose: Pose             # merged odometry pose
+    pose: Pose                  # final map-frame pose (mapping-refined)
+    odom_pose: Pose             # merged odometry pose (before mapping)
     skip: torch.Tensor
     is_keyframe: torch.Tensor
     num_good: torch.Tensor
+    num_plane_residuals: torch.Tensor
+    num_window_residuals: torch.Tensor  # sliding-window BA matches (0 if off)
     ground_ok: torch.Tensor
+    map_points: torch.Tensor
     desc: torch.Tensor          # (K, 8) int32 frame descriptor words (for
     # the keyframe store / BoW loop channel)
     desc_valid: torch.Tensor
     feat_xyz: torch.Tensor      # (K, 3) sensor-frame feature points
+    # downsampled sensor-frame ground/corner clouds this frame inserted
+    # (keyframe store -> loop-closure map rebuild)
+    ground_ds: torch.Tensor       # (Pg, 3)
+    ground_ds_mask: torch.Tensor  # (Pg,)
+    corner_ds: torch.Tensor       # (Pc, 3)
+    corner_ds_mask: torch.Tensor  # (Pc,)
     host: HostFlags
 
 
@@ -85,6 +89,7 @@ def init_state(cfg: SlamConfig, seed: int = 0, device="cuda") -> SlamState:
         odo=odometry.init_state(cfg, device=device),
         geo=geometric.init_state(cfg, num_less_sharp, gc.max_surf_points,
                                  device=device),
+        mapping=mapping.init_state(cfg, device=device),
         merged_pose=Pose.identity(device=device),
         gen=gen,
         last_delta=Pose.identity(device=device),
@@ -149,25 +154,44 @@ def slam_step(
         ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
     gres = ground.extract_ground(ground_u, xyz, scan.valid.reshape(-1), cfg.ground)
 
+    # scan-to-map (C14); corners = less-sharp cloud (the reference feeds its
+    # corner ikd-tree with the less-sharp features, `:478-479`); surf =
+    # less-flat cloud so wall planes observe x/y/yaw (see mapping_step)
+    map_state, map_out = mapping.mapping_step(
+        state.mapping,
+        xyz, gres.ground_mask,
+        fc.less_sharp, fc.less_sharp_mask,
+        merged, cfg,
+        features=odo_out.features,
+        surf_pts=fc.less_flat, surf_mask=fc.less_flat_mask,
+    )
+
     # velocity EMA for the next frame's undistortion prediction
     vel = Pose(
         q=se3.quat_normalize(se3.slerp(state.last_delta.q, delta.q, 0.5)),
         t=0.5 * (state.last_delta.t + delta.t),
     )
     new_state = SlamState(
-        odo=odo_state, geo=geo_state, merged_pose=merged, gen=state.gen,
-        last_delta=vel,
+        odo=odo_state, geo=geo_state, mapping=map_state, merged_pose=merged,
+        gen=state.gen, last_delta=vel,
     )
     out = SlamOutput(
-        pose=merged,
+        pose=map_out.pose,
         odom_pose=merged,
         skip=odo_out.skip,
         is_keyframe=odo_out.is_keyframe,
         num_good=odo_out.num_good,
+        num_plane_residuals=map_out.num_plane_residuals,
+        num_window_residuals=map_out.num_window_residuals,
         ground_ok=gres.ok,
+        map_points=map_out.map_points,
         desc=odo_out.features.desc,
         desc_valid=odo_out.features.valid & odo_out.features.xyz_valid,
         feat_xyz=odo_out.features.xyz,
+        ground_ds=map_out.ground_ds,
+        ground_ds_mask=map_out.ground_ds_mask,
+        corner_ds=map_out.corner_ds,
+        corner_ds_mask=map_out.corner_ds_mask,
         host=host,
     )
     return new_state, out
@@ -177,8 +201,9 @@ def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,
                  cfg: SlamConfig, seed: int = 0) -> SlamOutput:
     """Replay a sequence through `slam_step` on the sequence's device, in a
     Python loop.  Returns the outputs stacked over frames; the per-frame bulk
-    data (descriptors, feature points) is dropped, as the JAX package's
-    `lax.scan` replay drops it, and `host` is a list of the frames' flags."""
+    data (descriptors, feature points, downsampled clouds) is dropped, as
+    the JAX package's `lax.scan` replay drops it, and `host` is a list of the
+    frames' flags."""
     dev = xyz_seq.device
     mask = projection.detection_mask(cfg.sensor, device=dev)
     state = init_state(cfg, seed=seed, device=dev)
@@ -195,8 +220,12 @@ def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,
         skip=stack(lambda o: o.skip),
         is_keyframe=stack(lambda o: o.is_keyframe),
         num_good=stack(lambda o: o.num_good),
+        num_plane_residuals=stack(lambda o: o.num_plane_residuals),
+        num_window_residuals=stack(lambda o: o.num_window_residuals),
         ground_ok=stack(lambda o: o.ground_ok),
+        map_points=stack(lambda o: o.map_points),
         desc=empty.to(torch.int32), desc_valid=empty.to(torch.bool),
-        feat_xyz=empty,
+        feat_xyz=empty, ground_ds=empty, ground_ds_mask=empty.to(torch.bool),
+        corner_ds=empty, corner_ds_mask=empty.to(torch.bool),
         host=[o.host for o in outs],
     )

@@ -32,5 +32,7 @@ def test_guard_sees_the_package():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py") in FILES
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("ops/curvature.py", "ops/ground.py", "pipeline/geometric.py",
-                "pipeline/slam.py", "utils/index.py", "interop.py"):
+                "pipeline/slam.py", "utils/index.py", "interop.py",
+                "ops/grid_hash.py", "pipeline/mapping.py", "pipeline/fused.py",
+                "pipeline/system.py", "runtime/spill.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names

@@ -1,6 +1,8 @@
-"""Slice parity: intensity odometry -> keyframe back-end, composed as
-`pipeline/fused.py:159-168` composes them minus scan-to-map (the mapping
-pose is the integrated odometry pose), over the 38-frame out-and-back of
+"""`backend_step` parity: intensity odometry -> keyframe back-end through
+the standalone entry `loop.backend_step`, with the integrated odometry pose
+as the keyframe's map pose and without the ground, corner and quality inputs
+(the whole step, scan-to-map included, is held against the reference in
+tests/test_torch_fused.py), over the 38-frame out-and-back of
 tests/test_loop_closure.py at small_test_config, in both packages on the
 same JAX-rendered scans.
 
@@ -97,7 +99,7 @@ def _run_jax(cfg, xyz, inten):
 
 
 def _run_port(cfg, xyz, inten, device="cpu"):
-    """The slice composition on the port (the same one chip_smoke.py runs)."""
+    """Odometry + `backend_step` on the port, as `_run_jax` composes them."""
     mask = TP.detection_mask(cfg.sensor, device=device)
     odo, back = TO.init_state(cfg, device=device), TL.init_state(cfg, device=device)
     frames, kfs = [], []
@@ -189,9 +191,9 @@ def test_port_renderer_matches_jax_renderer(scans):
 
 
 def test_port_renderer_drives_the_slice(scans):
-    """The port end to end on its own renders (what chip_smoke.py runs at
-    full width on the card): keyframes, and a verified loop from the return
-    leg to the start."""
+    """Odometry + `backend_step` on the port's own renders (chip_smoke.py
+    renders the same sequence at full width on the card): keyframes, and a
+    verified loop from the return leg to the start."""
     cfg, poses, _, _ = scans
     tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
     tp = T3.Pose(torch.from_numpy(np.asarray(poses.q).copy()),
