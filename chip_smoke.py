@@ -49,7 +49,32 @@ Phases (any failure exits non-zero before the result lines are printed):
    return leg to the start, at least 16 plane residuals on every frame after
    the first, the ground map growing on every frame and changed by the
    rebuild at the accepted loop only, a finite 38-row `trajectory()` whose
-   end lies within 0.5 m of the rendered end.
+   end lies within 0.5 m of the rendered end;
+7. stream-small: `StreamingRunner` at small_test_config over a 12-frame
+   corridor scan log (the same ground-RANSAC draws handed to every run):
+   the CPU and the card take the same keyframes, skips and loops, `run` and
+   `run_preloaded` give the same stats on the card, the wire decode is
+   bit-equal between CPU and card, and the dispatch thread's host syncs
+   equal, call site by call site, those of `fused_step` (through
+   `SlamSystem.process`) on the same decoded frames;
+8. checkpoint: `SlamSystem.save` after 6 of 12 frames at small_test_config,
+   `load` into a fresh system and continue: on the card against the
+   uninterrupted card run, and from a file the CPU wrote against the
+   uninterrupted CPU run; the same decisions, log ids and skips;
+9. geoslam: `geometric_slam.run_sequence` (A-LOAM odometry + laser
+   mapping on unorganized scans) at full width over a 16-frame corridor
+   rendered on the card and permuted per frame: ATE and end error under a
+   quarter of the motion (tests/test_geometric_slam.py's bound), ms per step;
+10. stream: bench.py's 420-frame circuit (os0_64_config, circuit_world with
+   its textureless span, circuit_trajectory at 0.4 m a frame) rendered on
+   the card into a ~440 MB scan log in a temporary directory (deleted at
+   the end) and run once through `StreamingRunner(...).run(log)` in wire
+   mode.  Checked: 420 frames, an accepted loop from the second lap to the
+   first, 420 live TUM rows, no dropped pose write, a finite 420-row
+   `trajectory()` within 1.5 m ATE RMSE of the rendered poses, both kernels
+   launched, and no host sync of the dispatch thread outside `fused_step`'s
+   modules.  Printed: keyframes, skips, loops, ms per frame, scans/s, the
+   syncs by call site, peak memory, kernel launches.
 
 Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
 curvature features, geometric fallback on a skipped frame, mux, ground
@@ -60,7 +85,10 @@ rebuild, and the ring-log append.
 The line before the last is the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-    python3 chip_smoke.py --phase kernel|grid|small|fallback|slice
+    python3 chip_smoke.py --phase NAME
+
+with NAME one of kernel, grid, small, fallback, slice, stream-small,
+checkpoint, geoslam, stream
 
 builds the kernels and runs that one phase alone (no result lines).
 
@@ -79,19 +107,25 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
 from intensity_slam_tpu_torch.ops import grid_hash, pallas_nn, projection, voxel
-from intensity_slam_tpu_torch.pipeline import loop, mapping, odometry, slam
+from intensity_slam_tpu_torch.pipeline import (geometric_slam, loop, mapping,
+                                               odometry, slam)
 from intensity_slam_tpu_torch.pipeline.system import SlamSystem
+from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
 from intensity_slam_tpu_torch.utils import se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
@@ -152,10 +186,21 @@ def _sync_untracked(device):
 @contextlib.contextmanager
 def sync_counter(enabled: bool):
     """Count host syncs by call site for the length of the block (CUDA's
-    sync debug mode warns on each one); yields a Counter filled on exit."""
+    sync debug mode warns on each one); yields a Counter filled as they
+    come.  A sync made on another thread than the caller's is keyed with
+    that thread's name in brackets."""
     sites = collections.Counter()
-    with warnings.catch_warnings(record=True) as caught:
+    caller = threading.current_thread()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            site = f"{os.path.basename(filename)}:{lineno}"
+            th = threading.current_thread()
+            sites[site if th is caller else f"[{th.name}] {site}"] += 1
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         if enabled:
             torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -163,8 +208,6 @@ def sync_counter(enabled: bool):
         finally:
             if enabled:
                 torch.cuda.set_sync_debug_mode(0)
-    sites.update(f"{os.path.basename(w.filename)}:{w.lineno}"
-                 for w in caught if "synchroniz" in str(w.message))
 
 
 @contextlib.contextmanager
@@ -805,6 +848,384 @@ def fallback_phase(dev) -> None:
     check(bool(torch.isfinite(r["map_t"]).all()), "fallback: non-finite map pose")
 
 
+# ---- slice 5: the streaming runtime, checkpoints, the A-LOAM path ---------
+
+CIRCUIT_FRAMES = 420           # bench.py:62-105, tools/replay.py --benchmark
+RUNTIME_FILES = ("stream.py", "scanlog.py", "channel.py", "traj.py", "spill.py",
+                 "system.py", "fused.py", os.path.basename(__file__))
+
+
+def write_log(path: str, poses: se3.Pose, world, cfg, ground_truth=True) -> None:
+    """Render each pose with the port's renderer on the poses' device, one
+    frame at a time, into a scan log 0.1 s apart (with the rendered poses
+    as ground truth)."""
+    sc = cfg.sensor
+    with ScanLogWriter(path, sc.image_height, sc.image_width,
+                       ground_truth=ground_truth) as w:
+        for k in range(poses.q.shape[0]):
+            pose = se3.Pose(poses.q[k], poses.t[k])
+            xyz, inten = synthetic.render_scan(pose, world, sc,
+                                               frame_time=k * sc.scan_period)
+            w.append(0.1 * k, xyz.cpu().numpy(), inten.cpu().numpy(),
+                     pose.q.cpu().numpy(), pose.t.cpu().numpy())
+
+
+def run_stream(runner, log, count_syncs=False, preloaded=False, **kw) -> dict:
+    """`runner.run(log, ...)` (or `run_preloaded` with `preloaded=True`),
+    with the host clock read and the sync counts copied as each frame's
+    dispatch ends (`on_frame`), so that the counts cover the dispatch loop
+    and not the stats read after it.  Nothing is read from the device in
+    the loop; the frames' scalars are read after the run."""
+    stamps, infos, at_last = [], [], collections.Counter()
+
+    with sync_counter(count_syncs) as sites:
+        def on_frame(idx, info):
+            stamps.append(time.perf_counter())
+            infos.append(info)
+            at_last.clear()
+            at_last.update(sites)
+
+        t0 = time.perf_counter()
+        go = runner.run_preloaded if preloaded else runner.run
+        stats = go(log, on_frame=on_frame, **kw)
+        wall = time.perf_counter() - t0
+    t_frame = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    frames = [(bool(i.skip), bool(i.is_keyframe)) for i in infos]
+    kfs = [dict(kf=int(i.num_kf) - 1, frame=k,
+                candidate=math.isfinite(float(i.icp_fitness)),
+                accepted=bool(i.loop_found), loop_idx=int(i.loop_idx),
+                fitness=float(i.icp_fitness))
+           for k, i in enumerate(infos) if frames[k][1]]
+    return dict(stats=stats, frames=frames, kfs=kfs, t_frame=t_frame, wall=wall,
+                sync_sites=at_last, all_sync_sites=sites)
+
+
+def dispatch_sites(sites: collections.Counter) -> collections.Counter:
+    """The sync sites of the caller's (dispatch) thread."""
+    return collections.Counter({k: v for k, v in sites.items() if not k.startswith("[")})
+
+
+def stream_phase(dev) -> dict:
+    """bench.py's 420-frame circuit at full width through
+    `StreamingRunner.run` in wire mode, from a scan log the port rendered on
+    the card."""
+    cfg = config.os0_64_config()
+    n = CIRCUIT_FRAMES
+    traj = synthetic.circuit_trajectory(n, speed=0.4, device=dev)
+    world = synthetic.circuit_world(device=dev)
+    tmp = tempfile.mkdtemp(prefix="islam_circuit.")
+    try:
+        path, tum = os.path.join(tmp, "circuit.islog"), os.path.join(tmp, "live.tum")
+        t0 = time.perf_counter()
+        write_log(path, traj, world, cfg)
+        t_write = time.perf_counter() - t0
+        with ScanLog(path) as log:
+            print(f"stream: rendered and wrote the {n}-frame circuit "
+                  f"({len(world.box_centers)} boxes, {len(world.flat_centers)} "
+                  f"textureless zone) on the card in {t_write:.1f} s, "
+                  f"{os.path.getsize(path)} bytes")
+            # warm-up: the first 12 frames through a runner of their own
+            stream.StreamingRunner(cfg, device=dev).run(log, end=12)
+            runner = stream.StreamingRunner(cfg, traj_path=tum, device=dev)
+            _sync_untracked(dev)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            r = run_stream(runner, log, count_syncs=True)
+            launches = read_launches()
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            gt = torch.from_numpy(np.stack([log[k].gt_t for k in range(n)]))
+            overhead = runner_against_process(cfg, log, dev, tmp)
+        with open(tum) as f:
+            tum_rows = [line.split() for line in f if line.strip()]
+        est = torch.from_numpy(runner.trajectory())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gt = gt - gt[0]                              # the first pose has no rotation
+    odo = runner.state.log.ot[:n].cpu()
+    ate = lambda e: float(torch.sqrt(torch.mean(torch.sum((e - gt) ** 2, -1))))
+    stats, kfs = r["stats"], r["kfs"]
+    kf_frame = {k["kf"]: k["frame"] for k in kfs}
+    acc = [k for k in kfs if k["accepted"]]
+    cands = [k for k in kfs if k["candidate"]]
+    d0 = torch.linalg.norm(gt[:, :2], dim=-1)
+    lap = next((k for k in range(100, n) if d0[k] < 1.0), n)   # back at the start
+    last_to_first = [a for a in acc if a["frame"] >= lap
+                     and kf_frame.get(a["loop_idx"], n) < 100]
+    kf_frames = set(kf_frame.values())
+    t_kf = [t for k, t in enumerate(r["t_frame"]) if k in kf_frames]
+    t_other = [t for k, t in enumerate(r["t_frame"]) if k not in kf_frames]
+    disp = dispatch_sites(r["sync_sites"])
+    others = {k: v for k, v in r["sync_sites"].items() if k.startswith("[")}
+    in_runtime = {k: v for k, v in disp.items() if k.split(":")[0] in RUNTIME_FILES}
+    print(f"stream (full width, os0_64_config, StreamingRunner.run, wire mode): "
+          f"stats {stats}; keyframes {len(kfs)}, skips at frames "
+          f"{[k for k, f in enumerate(r['frames']) if f[0]]}, accepted loops {len(acc)}")
+    for k in cands:
+        print(f"  candidate: keyframe {k['kf']} (frame {k['frame']}) -> keyframe "
+              f"{k['loop_idx']} (frame {kf_frame.get(k['loop_idx'])}), icp fitness "
+              f"{k['fitness']:.6g}, {'accepted' if k['accepted'] else 'rejected'}, "
+              f"{1e3 * r['t_frame'][k['frame']]:.3f} ms")
+    print(f"  loop table {runner.loops}; the second lap starts at frame {lap}; "
+          f"nn kernel launches {launches['nn']}, pack kernel launches {launches['pack']}")
+    print(f"  trajectory(): {tuple(est.shape)} rows, ATE RMSE {ate(est):.4f} m against "
+          f"the rendered poses (the merged odometry alone {ate(odo):.4f} m), end "
+          f"error {float(torch.linalg.norm(est[-1] - gt[-1])):.4f} m; live TUM rows "
+          f"{len(tum_rows)}, dropped pose writes {stats['dropped_pose_writes']}")
+    print(f"  ms per frame (host clock between frame dispatches): median "
+          f"{1e3 * statistics.median(r['t_frame']):.3f}, non-keyframes "
+          f"{1e3 * statistics.median(t_other):.3f}, keyframes "
+          f"{1e3 * statistics.median(t_kf):.3f}, max {1e3 * max(r['t_frame']):.3f} at "
+          f"frame {r['t_frame'].index(max(r['t_frame']))}; loop frames "
+          f"{[(a['frame'], round(1e3 * r['t_frame'][a['frame']], 3)) for a in acc]}")
+    print(f"  end to end {n / r['wall']:.3f} scans/s ({r['wall']:.2f} s for {n} frames, "
+          f"sync counter on); upload slot waits {runner.upload_waits}; peak device "
+          f"memory {peak_mb:.0f} MiB; {gpu_name_and_power()}")
+    print(f"  the runner against SlamSystem.process on the circuit's first 40 frames "
+          f"(median ms per frame after the first, in run order): "
+          f"{[(k, round(v, 3)) for k, v in overhead]}")
+    print(f"  dispatch-thread host syncs {sum(disp.values())} in {n} frames = "
+          f"{sum(disp.values()) / n:.2f} per frame; by call site:")
+    print_sync_sites(disp)
+    print(f"  syncs on other threads: {dict(others)}")
+    check(stats["frames"] == n, f"stream ran {stats['frames']} frames")
+    check(len(tum_rows) == n, f"the live TUM file has {len(tum_rows)} rows")
+    check(stats["dropped_pose_writes"] == 0, "pose writes were dropped")
+    check(est.shape == (n, 3) and bool(torch.isfinite(est).all()),
+          "trajectory() is not 420 finite rows")
+    check(len(last_to_first) >= 1, f"no accepted loop from the second lap to the "
+          f"first: {[(a['frame'], a['loop_idx']) for a in acc]}")
+    check(launches["nn"] >= 1 and launches["pack"] >= 1,
+          f"the stream run did not launch both kernels: {launches}")
+    check(not in_runtime, f"the dispatch thread synced outside fused_step: {in_runtime}")
+    check(ate(est) < 1.5, f"ATE RMSE {ate(est):.3f} m over the circuit")
+    return dict(launches=launches)
+
+
+def runner_against_process(cfg, log, dev, tmp, frames=40) -> list:
+    """The runner's cost per frame: `StreamingRunner.run` over the log's
+    first `frames` frames against `SlamSystem.process` on the same frames
+    decoded beforehand, in the order runner, process, process, runner.
+    Median host ms per frame after the first (no per-frame synchronize in
+    either; the step's own syncs keep the host in step with the card)."""
+    words = [torch.from_numpy(wf.packed.view(np.int16))
+             for wf in log.stream_wire(0, frames, 2, 120.0)]
+    out = []
+    for kind in ("runner", "process", "process", "runner"):
+        if kind == "runner":
+            runner = stream.StreamingRunner(cfg, traj_path=os.path.join(tmp, "ab.tum"),
+                                            device=dev)
+            t = run_stream(runner, log, end=frames)["t_frame"]
+        else:
+            system = SlamSystem(cfg, device=dev)
+            dirs = torch.from_numpy(stream._build_dir_lut(log)).to(dev)
+            decoded = [stream.wire_decode(w.to(dev), dirs) for w in words]
+            _sync_untracked(dev)
+            t = []
+            for xyz, inten, ts in decoded:
+                t0 = time.perf_counter()
+                system.process(xyz, inten, ts)
+                t.append(time.perf_counter() - t0)
+            del decoded
+        _sync_untracked(dev)
+        out.append((kind, 1e3 * statistics.median(t[1:])))
+    return out
+
+
+def stream_small_phase(dev) -> None:
+    """`StreamingRunner` at small_test_config on a 12-frame corridor log:
+    CPU against card, `run` against `run_preloaded`, the wire decode, and
+    the dispatch thread's syncs against `fused_step`'s on the same frames."""
+    cfg = config.small_test_config()
+    n = 12
+    traj = synthetic.corridor_trajectory(n, speed=0.35, yaw_rate=0.02, device="cpu")
+    gu = torch.rand((n, cfg.ground.ransac_iters, 3),
+                    generator=torch.Generator().manual_seed(0))
+    gu_dev = gu.to(dev)
+    tmp = tempfile.mkdtemp(prefix="islam_small.")
+    try:
+        path = os.path.join(tmp, "corridor.islog")
+        write_log(path, traj, synthetic.corridor_world(device="cpu"), cfg)
+        with ScanLog(path) as log:
+            runs = {}
+            for name, device, kw in (("cpu", "cpu", {}), ("card", dev, {}),
+                                     ("card_preloaded", dev, {"preloaded": True})):
+                runner = stream.StreamingRunner(
+                    cfg, traj_path=os.path.join(tmp, f"{name}.tum"), device=device)
+                runs[name] = (runner, run_stream(runner, log, ground_u=gu_dev
+                                                 if device != "cpu" else gu, **kw))
+            counted = stream.StreamingRunner(cfg, traj_path=os.path.join(tmp, "n.tum"),
+                                             device=dev)
+            rc = run_stream(counted, log, count_syncs=True, ground_u=gu_dev)
+            words = [torch.from_numpy(wf.packed.view(np.int16))
+                     for wf in log.stream_wire(0, n, 2, 120.0)]
+            raw = np.stack([wf.packed for wf in log.stream_wire(0, n, 2, 120.0)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cpu_r, card_r = runs["cpu"][1], runs["card"][1]
+    (cpu, _), (card, _), (pre, pre_r) = runs["cpu"], runs["card"], runs["card_preloaded"]
+    decide = lambda rr: (rr["stats"], rr["frames"],
+                         [(k["frame"], k["accepted"], k["loop_idx"]) for k in rr["kfs"]])
+    same_dev = decide(cpu_r) == decide(card_r) and cpu.loops == card.loops
+    same_pre = decide(pre_r) == decide(card_r) and pre.loops == card.loops
+    dtraj = float(np.abs(cpu.trajectory() - card.trajectory()).max())
+    dpre = float(np.abs(pre.trajectory() - card.trajectory()).max())
+    # the wire decode: the same words on the CPU and on the card
+    bit_equal = True
+    for w in words:
+        a = stream.wire_decode(w, cpu._dirs)
+        b = stream.wire_decode(w.to(dev), card._dirs)
+        bit_equal &= all(x.numpy().tobytes() == y.cpu().numpy().tobytes()
+                         for x, y in zip(a, b))
+    # torch's uint16 on the card (the port widens int16 words instead)
+    try:
+        u16 = torch.from_numpy(raw).to(dev).to(torch.int32)
+        u16_note = (f"supported, equal to the int16 route "
+                    f"{torch.equal(u16, torch.stack(words).to(dev).to(torch.int32) & 0xFFFF)}")
+    except (RuntimeError, TypeError) as e:
+        u16_note = f"not supported ({type(e).__name__}: {str(e).splitlines()[0][:80]})"
+    # fused_step on the same decoded frames, through SlamSystem.process
+    system = SlamSystem(cfg, device=dev)
+    decoded = [stream.wire_decode(w.to(dev), card._dirs) for w in words]
+    _sync_untracked(dev)
+    t_direct = []
+    with sync_counter(True) as direct:
+        for k, (xyz, inten, ts) in enumerate(decoded):
+            t0 = time.perf_counter()
+            system.process(xyz, inten, ts, ground_u=gu_dev[k])
+            t_direct.append(time.perf_counter() - t0)
+    disp = dispatch_sites(rc["sync_sites"])
+    print(f"stream small: CPU {cpu_r['stats']}, card {card_r['stats']}, same "
+          f"keyframes, skips and loops {same_dev} (max |trajectory| diff "
+          f"{dtraj:.3g} m); run_preloaded on the card {pre_r['stats']}, same as run "
+          f"{same_pre} (max |trajectory| diff {dpre:.3g} m)")
+    print(f"  wire decode CPU = card bit for bit {bit_equal}; uint16 tensor to the "
+          f"card and widened there: {u16_note}")
+    print(f"  dispatch-thread syncs {sum(disp.values())} against fused_step's "
+          f"{sum(direct.values())} on the same frames; equal by call site "
+          f"{disp == direct}; other threads "
+          f"{ {k: v for k, v in rc['sync_sites'].items() if k.startswith('[')} }")
+    print(f"  median ms per frame after the first, host clock, both with the sync "
+          f"counter on: the runner {1e3 * statistics.median(rc['t_frame'][1:]):.3f} "
+          f"(log read, upload, decode, step, pose writer), SlamSystem.process on "
+          f"the decoded frames {1e3 * statistics.median(t_direct[1:]):.3f}")
+    check(same_dev, "stream small: the card took other decisions than the CPU")
+    check(same_pre, "stream small: run_preloaded differs from run on the card")
+    check(bit_equal, "stream small: the wire decode differs between CPU and card")
+    check(disp == direct, f"stream small: the dispatch thread's syncs {dict(disp)} are "
+          f"not fused_step's {dict(direct)}")
+    # scan-to-map amplifies CPU/card rounding at this config (ROADMAP §C, the
+    # plane fit's conditioning: 0.064 m in the small phase, 0.112 m here)
+    check(dtraj < 0.25, f"stream small: CPU and card trajectories {dtraj:.3f} m apart")
+
+
+def checkpoint_phase(dev) -> None:
+    """`SlamSystem.save` after 6 of 12 frames, `load` into a fresh system,
+    continue: on the card against the uninterrupted card run (the ground
+    RANSAC drawing from the restored generator), and from a file the CPU
+    wrote against the uninterrupted CPU run (the same draws handed to both)."""
+    cfg = config.small_test_config()
+    n, cut = 12, 6
+    traj = synthetic.corridor_trajectory(n, speed=0.35, yaw_rate=0.02, device="cpu")
+    xyz, inten = synthetic.render_sequence(traj, synthetic.corridor_world(device="cpu"),
+                                           cfg.sensor)
+    gu = torch.rand((n, cfg.ground.ransac_iters, 3),
+                    generator=torch.Generator().manual_seed(1))
+
+    def drive(system, frames, draws):
+        d = system.device
+        return [system.process(xyz[k].to(d), inten[k].to(d), 0.1 * k,
+                               ground_u=None if draws is None else draws[k].to(d))
+                for k in frames]
+
+    def flags(infos):
+        return [(bool(i.skip), bool(i.is_keyframe), int(i.num_kf), bool(i.loop_found))
+                for i in infos]
+
+    def log_of(system):
+        lg = system.state.log
+        return (lg.kf.cpu(), lg.skip.cpu(), int(lg.count), int(lg.num_skips)), lg.t.cpu()
+
+    tmp = tempfile.mkdtemp(prefix="islam_ckpt.")
+    results = []
+    try:
+        for name, first, then, draws in (("card -> card", dev, dev, None),
+                                         ("cpu -> card", "cpu", dev, gu)):
+            ref = SlamSystem(cfg, device=first)
+            drive(ref, range(cut), draws)
+            prefix = os.path.join(tmp, name.split()[0])
+            ref.save(prefix)
+            want = flags(drive(ref, range(cut, n), draws))
+            resumed = SlamSystem(cfg, device=then)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                resumed.load(prefix)
+            got = flags(drive(resumed, range(cut, n), draws))
+            (d_ref, t_ref), (d_got, t_got) = log_of(ref), log_of(resumed)
+            same_log = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                           for a, b in zip(d_ref, d_got))
+            dt = float((t_ref - t_got).abs().max())
+            dtraj = float(np.abs(ref.trajectory() - resumed.trajectory()).max())
+            print(f"checkpoint {name}: resumed at frame {cut} of {n}; same decisions "
+                  f"{got == want} (keyframes {want[-1][2]}), same log ids and skips "
+                  f"{same_log}, max |log t| diff {dt:.3g} m, max |trajectory| diff "
+                  f"{dtraj:.3g} m; load warnings {len(caught)}")
+            results.append((name, got == want and same_log, dt))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, same, dt in results:
+        check(same, f"checkpoint {name}: the resumed run took other decisions")
+        check(dt < 0.1, f"checkpoint {name}: the resumed log is {dt:.3f} m off")
+
+
+def geoslam_phase(dev) -> None:
+    """`geometric_slam.run_sequence` at full width (SlamConfig() defaults,
+    64x1024) over a 16-frame corridor rendered on the card and permuted per
+    frame (tests/test_geometric_slam.py:25-45), held to that test's bound."""
+    cfg = config.SlamConfig()
+    T = 16
+    traj = synthetic.corridor_trajectory(T, speed=0.3, yaw_rate=0.01, device=dev)
+    xyz, inten = synthetic.render_sequence(traj, synthetic.corridor_world(device=dev),
+                                           cfg.sensor)
+    g = torch.Generator(device=dev).manual_seed(0)
+    perms = torch.stack([torch.randperm(xyz.shape[1], generator=g, device=dev)
+                         for _ in range(T)])
+    xyz_u = torch.gather(xyz, 1, perms[..., None].expand(-1, -1, 3))
+    inten_u = torch.gather(inten, 1, perms)
+    gt = (traj.t - traj.t[0]).cpu()             # the first pose has no rotation
+    with sync_counter(True) as sites:           # also the warm-up
+        geometric_slam.run_sequence(xyz_u, inten_u, cfg)
+    _sync_untracked(dev)
+    t0 = time.perf_counter()
+    outs = geometric_slam.run_sequence(xyz_u, inten_u, cfg)
+    _sync_untracked(dev)
+    wall = time.perf_counter() - t0
+    with stage_timers([(geometric_slam, "geo_slam_step"),
+                       (geometric_slam.geometric, "geometric_delta"),
+                       (geometric_slam.laser_mapping, "laser_mapping_step"),
+                       (geometric_slam.curvature, "extract_features")]) as stage:
+        geometric_slam.run_sequence(xyz_u, inten_u, cfg)
+    est = outs.pose.t.cpu()
+    odo = outs.odom_pose.t.cpu()
+    err = torch.linalg.norm(est - gt, dim=-1)
+    ate = float(torch.sqrt(torch.mean(err ** 2)))
+    motion = float(torch.linalg.norm(gt[-1] - gt[0]))
+    surf = [int(v) for v in outs.num_surf_residuals]
+    print(f"geoslam (full width, {T} unorganized frames): ATE {ate:.4f} m, end error "
+          f"{float(err[-1]):.4f} m, odometry end error "
+          f"{float(torch.linalg.norm(odo[-1] - gt[-1])):.4f} m, over {motion:.2f} m of "
+          f"motion (bound: 0.25 x motion = {0.25 * motion:.3f} m); converged "
+          f"{[bool(c) for c in outs.converged]}; surf residuals {surf}; corner "
+          f"residuals {[int(v) for v in outs.num_corner_residuals]}")
+    print(f"  ms per geo_slam_step {1e3 * wall / T:.3f} (run_sequence, unsynchronized); "
+          f"host syncs {sum(sites.values()) / T:.2f} per step; each stage synchronized:")
+    print_stage_rows(sorted(stage.items(), key=lambda kv: -sum(kv[1])))
+    print_sync_sites(sites)
+    check(bool(torch.isfinite(est).all()), "geoslam: non-finite pose")
+    check(surf[-1] > 10, "geoslam: the mapping back-end did not engage")
+    check(motion > 2.0 and ate < 0.25 * motion, f"geoslam: ATE {ate:.3f} m")
+    check(float(err[-1]) < 0.25 * motion, f"geoslam: end error {float(err[-1]):.3f} m")
+
+
 def profile_phase(dev) -> None:
     cfg = slice_config(config.SlamConfig())
     traj = loop_trajectory()
@@ -852,13 +1273,17 @@ KERNELS = (
 )
 
 
-def kernel_records(kern: dict, launches: dict) -> dict:
+def kernel_records(kern: dict, by_path: dict) -> dict:
+    """The per-kernel record; `launches` sums the main paths' runs (the
+    slice's `SlamSystem.process` and the circuit's `StreamingRunner.run`),
+    each counted from 0 just before its run, `launches_by_path` splits it."""
     return {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": "intensity_slam_tpu_torch/csrc/nn.cu",
         "replaces": "intensity_slam_tpu/ops/pallas_nn.py:103",
-        "launches": launches[key],
+        "launches": sum(v[key] for v in by_path.values()),
+        "launches_by_path": {path: v[key] for path, v in by_path.items()},
         **kern[key],
         "passed": True,
     } for key, name in KERNELS]}
@@ -891,7 +1316,11 @@ def main() -> int:
                   "grid": lambda: grid_phase(dev),
                   "small": lambda: small_phase(dev),
                   "fallback": lambda: fallback_phase(dev),
-                  "slice": lambda: slice_phase(dev)}
+                  "slice": lambda: slice_phase(dev),
+                  "stream-small": lambda: stream_small_phase(dev),
+                  "checkpoint": lambda: checkpoint_phase(dev),
+                  "geoslam": lambda: geoslam_phase(dev),
+                  "stream": lambda: stream_phase(dev)}
         phases[only]()
         return 0
     kern = kernel_phase(dev, cfg)
@@ -899,7 +1328,13 @@ def main() -> int:
     small_phase(dev)
     fallback_phase(dev)
     sl = slice_phase(dev)
-    print(json.dumps(kernel_records(kern, sl["launches"])))
+    stream_small_phase(dev)
+    checkpoint_phase(dev)
+    geoslam_phase(dev)
+    st = stream_phase(dev)
+    print(gpu_name_and_power())
+    print(json.dumps(kernel_records(kern, {"slice": sl["launches"],
+                                           "stream": st["launches"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,18 +27,17 @@ import torch
 
 from . import config as C
 from .ops import curvature, features, grid_hash, ground
-from .pipeline import (fused, geometric, loop, mapping, odometry, posegraph,
-                       slam)
+from .pipeline import (fused, geometric, geometric_slam, laser_mapping, loop,
+                       mapping, odometry, posegraph, slam)
 from .utils import se3
-
-UINT32_FIELDS = frozenset({"desc", "prev_desc", "kf_sig", "kf_feat_desc",
-                           "feat_desc", "win_desc"})
+from .utils.checkpoint import UINT32_FIELDS
 
 _TYPES = {t.__name__: t for t in (
     se3.Pose, features.Features, odometry.OdometryState, posegraph.PoseGraph,
     loop.BackendState, geometric.GeometricState, curvature.FeatureClouds,
     ground.GroundResult, grid_hash.VoxelHashMap, mapping.MappingState,
-    fused.FrameLog, fused.FusedState)}
+    fused.FrameLog, fused.FusedState, laser_mapping.LaserMappingState,
+    geometric_slam.GeoSlamState)}
 
 
 def _to_tensor(a, device) -> torch.Tensor:

@@ -18,9 +18,12 @@ Trajectory export follows `updatePoses` semantics
 optimized graph; intermediate frames are corrected rigidly with their
 governing keyframe's era->PGO correction (`fused.trajectory`).
 
+`save`/`load` checkpoint the whole fused state in the JAX package's format
+(`utils.checkpoint`), so either package resumes the other's session.
+
 Not ported yet, and raising `NotImplementedError` until they are: `refine`
 and `cfg.parallel.refine_every_kf > 0` (they need the distributed back-end,
-`parallel/dist_backend`), `save` and `load` (they need `utils/checkpoint`).
+`parallel/dist_backend`).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import projection
 from ..runtime.spill import LogSpiller, host_array
+from ..utils import checkpoint
 from . import fused
 
 
@@ -134,11 +138,17 @@ class SlamSystem:
 
     # ---- checkpoint/resume -------------------------------------------------
     def save(self, prefix: str) -> None:
-        raise NotImplementedError(
-            "SlamSystem.save needs utils/checkpoint, which the PyTorch port "
-            "does not have yet")
+        """Checkpoint the full fused state for crash-resume / multi-session
+        mapping (`prefix + ".fused.npz"`)."""
+        checkpoint.save(prefix + ".fused.npz", self.state)
 
     def load(self, prefix: str) -> None:
-        raise NotImplementedError(
-            "SlamSystem.load needs utils/checkpoint, which the PyTorch port "
-            "does not have yet")
+        """Restore a checkpoint written by either package's `save` onto this
+        system's device.  A JAX checkpoint carries no generator state (its
+        `rng` key is left behind), so the generator keeps its own."""
+        self.state = checkpoint.restore(prefix + ".fused.npz", self.state)
+        # re-align host counters with the restored device log; segments
+        # spilled by the previous process are host state and are gone: the
+        # export covers the ring-resident suffix until new spills
+        self._frames = int(self.state.log.count)
+        self._spiller.resync(self._frames)

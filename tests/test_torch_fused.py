@@ -345,13 +345,18 @@ def test_wrapped_log_and_spill_give_the_whole_trajectory(both):
         LogSpiller(cfg, chunk=9)
 
 
-def test_unported_entry_points_say_what_is_missing(both):
+def test_unported_entry_points_say_what_is_missing(both, tmp_path):
     tsys = both["tsys"]
     with pytest.raises(NotImplementedError, match="dist_backend"):
         tsys.refine()
-    for call in (tsys.save, tsys.load):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            call("/nonexistent/prefix")
+    # save/load are ported (utils/checkpoint): the whole run's state resumes
+    tsys.save(str(tmp_path / "run"))
+    resumed = TSystem(_tcfg(both["cfg"]), device="cpu")
+    resumed.load(str(tmp_path / "run"))
+    assert resumed._frames == tsys._frames
+    for a, b in zip(resumed.state.log, tsys.state.log):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(resumed.trajectory(), tsys.trajectory())
     cfg = _tcfg(both["cfg"])
     cfg = cfg.replace(parallel=dataclasses.replace(cfg.parallel, refine_every_kf=4))
     with pytest.raises(NotImplementedError, match="dist_backend"):

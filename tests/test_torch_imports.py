@@ -1,5 +1,8 @@
 """Import guard: the PyTorch port and chip_smoke.py import nothing of JAX
-and nothing of the JAX package (not even its JAX-free modules)."""
+and nothing of the JAX package (not even its JAX-free modules), and no
+module of the port opens a path under `native/build/`, the JAX package's
+build directory of the native runtime (the port builds its own copy into
+`intensity_slam_tpu_torch/_build/`)."""
 
 import ast
 import pathlib
@@ -34,5 +37,29 @@ def test_guard_sees_the_package():
     for mod in ("ops/curvature.py", "ops/ground.py", "pipeline/geometric.py",
                 "pipeline/slam.py", "utils/index.py", "interop.py",
                 "ops/grid_hash.py", "pipeline/mapping.py", "pipeline/fused.py",
-                "pipeline/system.py", "runtime/spill.py"):
+                "pipeline/system.py", "runtime/spill.py", "io/synthetic.py",
+                "runtime/stream.py", "runtime/native.py", "runtime/scanlog.py",
+                "utils/checkpoint.py", "pipeline/geometric_slam.py",
+                "pipeline/laser_mapping.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
+
+
+def _path_literals(tree):
+    """String constants that are not docstrings, and the constant arguments
+    of each `os.path.join(...)` call joined by "/"."""
+    docs = {id(n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)}
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs:
+            yield n.value
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "join"):
+            yield "/".join(a.value for a in n.args
+                           if isinstance(a, ast.Constant) and isinstance(a.value, str))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_under_the_reference_build(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [s for s in _path_literals(tree) if "native/build" in s]
+    assert not bad, f"{path.name} names {bad}"
