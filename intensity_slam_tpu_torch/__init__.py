@@ -26,7 +26,10 @@ kernels, `csrc/nn.cu`), `ops.icp`, `pipeline.odometry`, `pipeline.geometric`,
 `pipeline.mapping` (scan-to-map), `pipeline.slam` (the per-frame step),
 `pipeline.posegraph`, `pipeline.loop`, `pipeline.fused` (the fused step and
 its ring log), `pipeline.system` (`SlamSystem`), `runtime.spill`,
-`io.synthetic` (noise-free renderer) and `interop`.
+`io.synthetic` (noise-free renderer) and `interop`; then the streaming
+runtime, checkpoints, the whole renderer and the A-LOAM path (slice 5), and
+`parallel` (slice 6: the distributed back-end behind `SlamSystem.refine`,
+over `torch.distributed` process groups).
 """
 
 import torch

@@ -15,7 +15,8 @@ fields listed in `UINT32_FIELDS`.
 counterpart, so the port's state gets a fresh `torch.Generator` and the way
 back returns a dict of the shared fields.  `state_from_numpy` takes a whole
 JAX `FusedState` the same way, so the port can start in the middle of a
-reference run.
+reference run, and the distributed back-end's `BAProblem`, `BAResult` and
+`RefineResult`, so a test can hand a JAX-built problem to the port.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from . import config as C
 from .ops import curvature, features, grid_hash, ground
+from .parallel import dist_ba, dist_backend
 from .pipeline import (fused, geometric, geometric_slam, laser_mapping, loop,
                        mapping, odometry, posegraph, slam)
 from .utils import se3
@@ -37,7 +39,8 @@ _TYPES = {t.__name__: t for t in (
     loop.BackendState, geometric.GeometricState, curvature.FeatureClouds,
     ground.GroundResult, grid_hash.VoxelHashMap, mapping.MappingState,
     fused.FrameLog, fused.FusedState, laser_mapping.LaserMappingState,
-    geometric_slam.GeoSlamState)}
+    geometric_slam.GeoSlamState, dist_ba.BAProblem, dist_ba.BAResult,
+    dist_backend.RefineResult)}
 
 
 def _to_tensor(a, device) -> torch.Tensor:

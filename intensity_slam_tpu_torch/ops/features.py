@@ -12,7 +12,9 @@ Port notes:
   JAX package's uint32 words (torch has little uint32 arithmetic): bit i of
   word w is sample 32*w+i.  Compare across packages via `.view(np.uint32)`.
 - torch has no popcount: `popcount32` is a SWAR count on the two 16-bit
-  halves of each word, in int32 arithmetic that cannot overflow.
+  halves of each word, in int32 arithmetic that cannot overflow.  The
+  Hamming matrix is instead one float32 product of the descriptor bits
+  mapped to +-1 (exact: its partial sums are small integers).
 - `lax.top_k` and `jnp.argsort` put ties in index order; here a stable sort
   does the same.
 """
@@ -303,35 +305,40 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(Ka, 8) x (Kb, 8) int32 words -> (Ka, Kb) int32 Hamming distances,
-    summed word by word so the transient stays (Ka, Kb)."""
-    h = popcount32(torch.bitwise_xor(da[:, None, 0], db[None, :, 0]))
-    for w in range(1, 8):
-        h = h + popcount32(torch.bitwise_xor(da[:, None, w], db[None, :, w]))
-    return h
+    """(..., Ka, 8) x (..., Kb, 8) int32 words -> (..., Ka, Kb) int32 Hamming
+    distances (leading dims are a batch of pairs), as one (batched) float32
+    product of the descriptors' 256 bits mapped to +-1:
+    popcount(a ^ b) = (256 - <sa, sb>) / 2.  Exact, whatever the summation
+    order: every partial sum is an integer of magnitude at most 256."""
+    shifts = torch.arange(32, dtype=torch.int32, device=da.device)
+
+    def signs(d):
+        bits = (d[..., None] >> shifts) & 1                     # (..., K, 8, 32)
+        return (1 - 2 * bits).flatten(-2).float()               # (..., K, 256)
+
+    dot = torch.matmul(signs(da), signs(db).transpose(-1, -2))
+    return dot.neg_().add_(256.0).mul_(0.5).to(torch.int32)
 
 
-def _mutual_nn(fa_desc, fa_valid, fb_desc, fb_valid, max_hamming):
+def _mutual_nn(d, fa_valid, fb_valid, max_hamming):
     """The part of matching that does not depend on the keep fraction:
     mutual nearest neighbours (BFMatcher crossCheck) under `max_hamming` and
-    each source's rank by distance.  Returns (ia, best_b, dist, cand,
-    num_mutual, rank)."""
+    each source's rank by distance, over (..., Ka, Kb) Hamming distances `d`
+    (leading dims are a batch of pairs).  Ties go to the lowest index.
+    Returns (ia, best_b, dist, cand, num_mutual, rank)."""
     BIG = 1 << 20
-    d = hamming_matrix(fa_desc, fb_desc)
-    ok = fa_valid[:, None] & fb_valid[None, :]
+    ok = fa_valid[..., :, None] & fb_valid[..., None, :]
     d = torch.where(ok, d, BIG)
-    best_b = torch.argmin(d, dim=1)
-    best_a = torch.argmin(d, dim=0)
-    Ka = fa_desc.shape[0]
-    ia = torch.arange(Ka, device=d.device)
-    mutual = best_a[best_b] == ia
-    dist = d[ia, best_b]
+    best_b = torch.argmin(d, dim=-1)
+    best_a = torch.argmin(d, dim=-2)
+    ia = torch.arange(d.shape[-2], device=d.device).expand_as(best_b)
+    mutual = torch.gather(best_a, -1, best_b) == ia
+    dist = torch.gather(d, -1, best_b[..., None])[..., 0]
     cand = mutual & (dist < max_hamming)
-    num_mutual = torch.sum(cand, dtype=torch.int32)
+    num_mutual = torch.sum(cand, dim=-1, dtype=torch.int32)
     sort_key = torch.where(cand, dist, BIG)
-    order = torch.argsort(sort_key, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = ia
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(-1, order, ia)
     return ia, best_b, dist, cand, num_mutual, rank
 
 
@@ -342,7 +349,7 @@ def _matches(ia, best_b, dist, good, num_mutual) -> Matches:
         dist=dist.float(),
         valid=good,
         num_mutual=num_mutual,
-        num_good=torch.sum(good, dtype=torch.int32),
+        num_good=torch.sum(good, dim=-1, dtype=torch.int32),
     )
 
 
@@ -353,11 +360,12 @@ def match(
     max_hamming: int = 64,
 ) -> Matches:
     """Mutual-NN Hamming matching with the reference's keep-top-fraction rule
-    (`intensity_feature_tracker.cpp:631-646,684-689`), one cut."""
+    (`intensity_feature_tracker.cpp:631-646,684-689`), one cut.  With
+    leading batch dims on every input, a batch of independent pairs."""
     ia, best_b, dist, cand, num_mutual, rank = _mutual_nn(
-        fa_desc, fa_valid, fb_desc, fb_valid, max_hamming)
+        hamming_matrix(fa_desc, fb_desc), fa_valid, fb_valid, max_hamming)
     keep_n = torch.ceil(num_mutual.float() * keep_frac).to(torch.int32)
-    return _matches(ia, best_b, dist, cand & (rank < keep_n), num_mutual)
+    return _matches(ia, best_b, dist, cand & (rank < keep_n[..., None]), num_mutual)
 
 
 def match_retry(
@@ -372,7 +380,7 @@ def match_retry(
     pass (`intensity_feature_tracker.cpp:631-692`): when the first cut keeps
     fewer than `min_good` matches, the looser `keep_frac_retry` cut applies."""
     ia, best_b, dist, cand, num_mutual, rank = _mutual_nn(
-        fa_desc, fa_valid, fb_desc, fb_valid, max_hamming)
+        hamming_matrix(fa_desc, fb_desc), fa_valid, fb_valid, max_hamming)
     nm = num_mutual.float()
     keep_n1 = torch.ceil(nm * keep_frac).to(torch.int32)
     num_good1 = torch.sum(cand & (rank < keep_n1))

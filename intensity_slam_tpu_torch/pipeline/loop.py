@@ -164,6 +164,23 @@ def write_slot(state: BackendState, small: SmallState, slot: SlotData
     return merge_small(state, small)._replace(**upd)
 
 
+def logical_view(state: BackendState) -> BackendState:
+    """BackendState with the payload arrays gathered into LOGICAL keyframe
+    order (`kf_slot` becomes the identity, the free-slot stack its initial
+    order).  For consumers that index payloads by keyframe id: the
+    distributed back-end (`parallel.ba_builder`,
+    `parallel.dist_backend.shard_backend_state`) and host-side analysis."""
+    s = state.kf_slot.long()
+    K = s.shape[0]
+    i32 = dict(dtype=torch.int32, device=s.device)
+    return state._replace(
+        kf_slot=torch.arange(K, **i32),
+        free_slots=torch.arange(K - 1, -1, -1, **i32),
+        free_count=(K - state.num_kf).to(torch.int32),
+        **{f: getattr(state, f)[s] for f in _PAYLOAD_FIELDS},
+    )
+
+
 def init_state(cfg: SlamConfig, device="cuda") -> BackendState:
     lc = cfg.loop
     K, P, F, Pg, Pc = _sizes(cfg)

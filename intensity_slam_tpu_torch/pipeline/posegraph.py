@@ -162,6 +162,29 @@ def compact_half(g: PoseGraph) -> PoseGraph:
     )
 
 
+def _edge_residuals(g: PoseGraph, poses: Pose, odo_sqrt_info, prior_sqrt_info
+                    ) -> torch.Tensor:
+    """All residuals as one flat vector: the prior on node 0 (gauge fix), the
+    odometry chain r_i = log(Z_i^-1 (T_{i-1}^-1 T_i)) for i >= 1, then the
+    loop edges; padding rows are weighted 0.  `odo_sqrt_info` is per edge,
+    (K, 6); `prior_sqrt_info` is (6,)."""
+    K = g.node_valid.shape[0]
+    dev = g.node_valid.device
+    prior_si = torch.as_tensor(prior_sqrt_info, dtype=torch.float32, device=dev)
+    r_prior = prior_si * se3.se3_log(Pose(poses.q[0], poses.t[0]))
+    Tprev = Pose(torch.roll(poses.q, 1, dims=0), torch.roll(poses.t, 1, dims=0))
+    rel_est = se3.compose(se3.inverse(Tprev), poses)
+    r_odo = se3.se3_log(se3.compose(se3.inverse(g.odo_rel), rel_est))
+    idx = torch.arange(K, device=dev)
+    w_odo = (g.node_valid & (idx >= 1) & (idx < g.num_nodes))[:, None]
+    r_odo = torch.where(w_odo, r_odo * odo_sqrt_info, 0.0)
+    li, lj = g.loop_i.long(), g.loop_j.long()
+    rel_l = se3.compose(se3.inverse(_take(poses, li)), _take(poses, lj))
+    r_loop = se3.se3_log(se3.compose(se3.inverse(g.loop_rel), rel_l))
+    r_loop = torch.where(g.loop_valid[:, None], r_loop * g.loop_sqrt_info, 0.0)
+    return torch.cat([r_prior[None, :], r_odo, r_loop], dim=0).reshape(-1)
+
+
 def _jac6(f, batch_shape, device) -> torch.Tensor:
     """Jacobian blocks of a batched map f: (..., 6) -> (..., 6) whose output
     row b depends only on input row b, at 0: six forward-mode passes.
@@ -328,6 +351,70 @@ def _dense_update_multi(poses: Pose, node_valid, odo_ok, rel_est: Pose,
                                poses.t[None].expand(B, K, 3)))
 
 
+# conditioning scale on every sqrt-information of the solve
+_SCALE = 1e-3
+
+
+def _odo_noise_model(g: PoseGraph, odo_noise, drift_rate, drift_rot_rate):
+    """The odometry edges' noise model: (odo_ok, odo_si_eff, cum_len, odo_nz).
+    `odo_ok` marks the edges in the solve (node 0 is the gauge, padding
+    slots are out), `odo_si_eff` their scaled sqrt-information from the base
+    noise plus drift over the edge's step length times `odo_qual`, `cum_len`
+    the cumulative effective path length and `odo_nz` the base variances,
+    both for `_loop_envelope`."""
+    K = g.node_valid.shape[0]
+    dev = g.node_valid.device
+    idx_n = torch.arange(K, device=dev)
+    odo_ok = g.node_valid & (idx_n >= 1) & (idx_n < g.num_nodes)
+    step_len = torch.where(odo_ok, _norm(g.odo_rel.t), 0.0)
+    step_eff = step_len * g.odo_qual
+    odo_nz = index.constant(odo_noise, device=dev)
+    odo_var_edge = odo_nz[None, :] + torch.cat([
+        ((drift_rot_rate * step_eff[:, None]) ** 2).expand(K, 3),
+        ((drift_rate * step_eff[:, None]) ** 2).expand(K, 3),
+    ], dim=-1)
+    odo_si = _SCALE / torch.sqrt(odo_var_edge)
+    return odo_ok, odo_si * odo_ok[:, None], torch.cumsum(step_eff, 0), odo_nz
+
+
+def _loop_envelope(cum_len, li, lj, odo_nz, drift_rate, drift_rot_rate) -> torch.Tensor:
+    """(E, 6) plausible-drift variance of each loop edge i -> j: the base
+    odometry noise over |i - j| steps plus drift over the path between."""
+    li, lj = li.long(), lj.long()
+    path_e = torch.clamp(torch.abs(cum_len[li] - cum_len[lj]), min=1.0)
+    n_e = torch.clamp(torch.abs(li - lj).float(), min=1.0)
+    E = path_e.shape[0]
+    drift_var = torch.cat([
+        ((drift_rot_rate * path_e[:, None]) ** 2).expand(E, 3),
+        ((drift_rate * path_e[:, None]) ** 2).expand(E, 3),
+    ], dim=-1)
+    return n_e[:, None] * odo_nz[None, :] + drift_var
+
+
+def _robust_loop_si(poses: Pose, loop_i, loop_j, loop_rel: Pose, env_var,
+                    base_si, loop_cauchy_c: float) -> torch.Tensor:
+    """`base_si` reweighted per loop edge by min(1, (2c^2/(c^2+s))^2), s the
+    edge's residual at `poses` whitened by the drift envelope `env_var`
+    (unweighted when c <= 0)."""
+    if loop_cauchy_c <= 0:
+        return base_si
+    li, lj = loop_i.long(), loop_j.long()
+    rel_l = se3.compose(se3.inverse(_take(poses, li)), _take(poses, lj))
+    r_l = se3.se3_log(se3.compose(se3.inverse(loop_rel), rel_l))
+    s = torch.sum(r_l * r_l / env_var, dim=-1)
+    c2 = loop_cauchy_c ** 2
+    return base_si * torch.clamp((2.0 * c2 / (c2 + s)) ** 2, max=1.0)[:, None]
+
+
+def _take_best(poses: Pose, cands: Pose, costs: torch.Tensor) -> Pose:
+    """The least-cost pose set among `poses` (costs[0]) and the damping
+    candidates (costs[1:]); a NaN candidate (failed Cholesky) never wins."""
+    costs = torch.where(torch.isfinite(costs), costs, torch.inf)
+    best = torch.argmin(costs)
+    return Pose(index.take(torch.cat([poses.q[None], cands.q]), best),
+                index.take(torch.cat([poses.t[None], cands.t]), best))
+
+
 def optimize(
     g: PoseGraph,
     gn_iters: int = 8,
@@ -349,47 +436,17 @@ def optimize(
     whitened by the plausible-drift envelope; odometry edges carry per-edge
     noise scaled by their step length (see the JAX package's docstring)."""
     K = g.node_valid.shape[0]
-    dev = g.node_valid.device
-    scale = 1e-3
-    base_loop_si = g.loop_sqrt_info * scale
+    E = g.loop_valid.shape[0]
     loop_on = g.loop_valid if loop_active is None else g.loop_valid & loop_active
-
-    idx_n = torch.arange(K, device=dev)
-    odo_ok = g.node_valid & (idx_n >= 1) & (idx_n < g.num_nodes)
-    step_len = torch.where(odo_ok, _norm(g.odo_rel.t), 0.0)
-    step_eff = step_len * g.odo_qual
-    odo_nz = index.constant(odo_noise, device=dev)
-    odo_var_edge = odo_nz[None, :] + torch.cat([
-        ((drift_rot_rate * step_eff[:, None]) ** 2).expand(K, 3),
-        ((drift_rate * step_eff[:, None]) ** 2).expand(K, 3),
-    ], dim=-1)
-    odo_si = scale / torch.sqrt(odo_var_edge)
-
-    cum_len = torch.cumsum(step_eff, 0)
-    li, lj = g.loop_i.long(), g.loop_j.long()
-    path_e = torch.clamp(torch.abs(cum_len[li] - cum_len[lj]), min=1.0)
-    n_e = torch.clamp(torch.abs(li - lj).float(), min=1.0)
-    E = path_e.shape[0]
-    drift_var = torch.cat([
-        ((drift_rot_rate * path_e[:, None]) ** 2).expand(E, 3),
-        ((drift_rate * path_e[:, None]) ** 2).expand(E, 3),
-    ], dim=-1)
-    env_var = n_e[:, None] * odo_nz[None, :] + drift_var
-    odo_si_eff = odo_si * odo_ok[:, None]
+    odo_ok, odo_si_eff, cum_len, odo_nz = _odo_noise_model(
+        g, odo_noise, drift_rate, drift_rot_rate)
+    env_var = _loop_envelope(cum_len, g.loop_i, g.loop_j, odo_nz, drift_rate, drift_rot_rate)
+    base_loop_si = g.loop_sqrt_info * _SCALE
 
     poses = g.poses
     for _ in range(gn_iters):
-        if loop_cauchy_c > 0:
-            rel_l = se3.compose(se3.inverse(_take(poses, li)), _take(poses, lj))
-            r_l = se3.se3_log(se3.compose(se3.inverse(g.loop_rel), rel_l))
-            s = torch.sum(r_l * r_l / env_var, dim=-1)
-            c2 = loop_cauchy_c ** 2
-            w_rob = torch.clamp((2.0 * c2 / (c2 + s)) ** 2, max=1.0)
-            loop_si = base_loop_si * w_rob[:, None]
-        else:
-            loop_si = base_loop_si
-        loop_si = loop_si * loop_on[:, None]
-
+        loop_si = _robust_loop_si(poses, g.loop_i, g.loop_j, g.loop_rel, env_var,
+                                  base_loop_si, loop_cauchy_c) * loop_on[:, None]
         Tprev = Pose(torch.roll(poses.q, 1, dims=0), torch.roll(poses.t, 1, dims=0))
         rel_est = se3.compose(se3.inverse(Tprev), poses)
         r_odo, J_odo = _edge_jacobians(rel_est, g.odo_rel, odo_si_eff)
@@ -403,12 +460,7 @@ def optimize(
                                     r_odo, J_odo, Hl, bl, _LM_LAMBDAS)
         cand_costs = _frozen_cost(cands, g.odo_rel, odo_si_eff, g.loop_i,
                                   g.loop_j, g.loop_rel, loop_si)
-        costs = torch.cat([cost_old[None], cand_costs])
-        # a NaN candidate (failed Cholesky) must never win
-        costs = torch.where(torch.isfinite(costs), costs, torch.inf)
-        best = torch.argmin(costs)
-        poses = Pose(index.take(torch.cat([poses.q[None], cands.q]), best),
-                     index.take(torch.cat([poses.t[None], cands.t]), best))
+        poses = _take_best(poses, cands, torch.cat([cost_old[None], cand_costs]))
     return g._replace(poses=poses)
 
 

@@ -12,6 +12,12 @@ log.  This class is a thin wrapper:
   WITHOUT reading it.  Read any field if you want to wait for the frame.
 - trajectory/loops/keyframe accessors fetch device state on demand,
   typically once, at the end of a sequence.
+- `refine` hands the live BackendState to the distributed back-end
+  (`parallel.dist_backend.refine`, over `mesh`, a
+  `parallel.multiproc.Mesh`, when given) and adopts the refined poses
+  through the path a loop closure takes (`fused.adopt_graph`).  With
+  `cfg.parallel.refine_every_kf > 0`, `process` triggers it every N
+  keyframes; the keyframe count is read every 32 frames and nowhere else.
 
 Trajectory export follows `updatePoses` semantics
 (`intensity_feature_tracker.cpp:110-145`): keyframe poses come from the
@@ -20,10 +26,6 @@ governing keyframe's era->PGO correction (`fused.trajectory`).
 
 `save`/`load` checkpoint the whole fused state in the JAX package's format
 (`utils.checkpoint`), so either package resumes the other's session.
-
-Not ported yet, and raising `NotImplementedError` until they are: `refine`
-and `cfg.parallel.refine_every_kf > 0` (they need the distributed back-end,
-`parallel/dist_backend`).
 """
 
 from __future__ import annotations
@@ -33,22 +35,21 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import projection
+from ..parallel import dist_backend
 from ..runtime.spill import LogSpiller, host_array
-from ..utils import checkpoint
+from ..utils import checkpoint, se3
 from . import fused
 
 
 class SlamSystem:
-    def __init__(self, cfg: SlamConfig, seed: int = 0, device="cuda"):
-        if cfg.parallel.refine_every_kf > 0:
-            raise NotImplementedError(
-                "parallel.refine_every_kf > 0 needs parallel/dist_backend, "
-                "which the PyTorch port does not have yet")
+    def __init__(self, cfg: SlamConfig, seed: int = 0, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.mask = projection.detection_mask(cfg.sensor, device=self.device)
         self.state = fused.init_state(cfg, seed, device=self.device)
         self._frames = 0
+        self._last_refine_kf = 0
         # unbounded trajectory export: raw segments spill to the host before
         # the device ring wraps (runtime.spill.LogSpiller)
         self._spiller = LogSpiller(cfg)
@@ -63,14 +64,26 @@ class SlamSystem:
             ground_u=ground_u)
         self._frames += 1
         self._spiller.maybe_spill(self.state, self._frames)
+        every = self.cfg.parallel.refine_every_kf
+        if every > 0 and self._frames % 32 == 0:
+            n_kf = int(info.num_kf)          # one scalar read per 32 frames
+            if n_kf - self._last_refine_kf >= every:
+                self.refine()
+                self._last_refine_kf = n_kf
         return info
 
     # ---- distributed refinement -------------------------------------------
     def refine(self) -> None:
-        raise NotImplementedError(
-            "SlamSystem.refine needs parallel/dist_backend, which the "
-            "PyTorch port does not have yet (fused.adopt_graph, its feedback "
-            "half, is ported)")
+        """Run the global PGO + BA refinement on the live keyframe store
+        (the store sharded over `mesh` when there is one) and feed the
+        refined poses back."""
+        bstate = self.state.backend
+        if self.mesh is not None:
+            bstate = dist_backend.shard_backend_state(bstate, self.mesh)
+        res = dist_backend.refine(bstate, self.cfg, mesh=self.mesh)
+        poses = res.state.graph.poses
+        self.state = fused.adopt_graph(
+            self.state, se3.pose_map(lambda a: a.to(self.device), poses), self.cfg)
 
     # ---- state accessors (each fetch waits; use after the hot loop) --------
     @property

@@ -1,5 +1,7 @@
-"""Import guard: the PyTorch port and chip_smoke.py import nothing of JAX
-and nothing of the JAX package (not even its JAX-free modules), and no
+"""Import guard: the PyTorch port (its distributed back-end and the worker
+that `parallel.multiproc.launch` spawns included) and chip_smoke.py import
+nothing of JAX and nothing of the JAX package (not even its JAX-free
+modules), and no
 module of the port opens a path under `native/build/`, the JAX package's
 build directory of the native runtime (the port builds its own copy into
 `intensity_slam_tpu_torch/_build/`)."""
@@ -11,7 +13,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_nn_tune.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_nn_tune.py",
+    ROOT / "tools" / "torch_refine_draws.py"]
 FORBIDDEN = ("jax", "jaxlib", "intensity_slam_tpu")
 
 
@@ -40,7 +43,9 @@ def test_guard_sees_the_package():
                 "pipeline/system.py", "runtime/spill.py", "io/synthetic.py",
                 "runtime/stream.py", "runtime/native.py", "runtime/scanlog.py",
                 "utils/checkpoint.py", "pipeline/geometric_slam.py",
-                "pipeline/laser_mapping.py"):
+                "pipeline/laser_mapping.py", "parallel/multiproc.py",
+                "parallel/dist_ba.py", "parallel/ba_builder.py", "parallel/dist_pgo.py",
+                "parallel/dist_backend.py", "parallel/live_demo.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
 
 
