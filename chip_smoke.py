@@ -97,7 +97,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    refine under 1 m on both, and on the (deterministic) CPU run the refine
    cutting the ATE below 0.9 of what it was; the card's ATE before and after
    is printed. Kernel launches are counted over (b) and over (c)'s card run,
-   each from 0. The NCCL group is destroyed at the end.
+   each from 0. The NCCL group is destroyed at the end;
+12. tools: the user-facing and accuracy tools at full width, called
+   in-process: the README's quick start `tools/torch_replay.py --frames 40
+   --check-ate` (the `slam` pipeline) and the same 40 frames through
+   `--pipeline odometry`, both within their ATE bound, skips and keyframes
+   printed; `tools/torch_bag2islog.py`'s `convert` of a bag of three
+   full-width scans, read back through `ScanLog` bit-equal;
+   `tools/torch_loop_eval.py`'s `run_one` on the aliased corridor
+   (os0_64_config, every loop channel, sensor noise seed 0, 320 frames),
+   which must close at least one correct loop (its precision printed).
+   Kernel launches are counted over the whole phase (`tools`).
 
 Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
 curvature features, geometric fallback on a skipped frame, mux, ground
@@ -111,7 +121,7 @@ The line before the last is the per-kernel JSON record; the last line is
     python3 chip_smoke.py --phase NAME
 
 with NAME one of kernel, grid, small, fallback, slice, stream-small,
-checkpoint, geoslam, stream, refine
+checkpoint, geoslam, stream, refine, tools
 
 builds the kernels and runs that one phase alone (no result lines; refine
 runs the stream phase first, for its keyframe store).
@@ -128,13 +138,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import bz2
 import json
 import math
 import os
 import shutil
 import socket
 import statistics
-import subprocess
+import struct
 import sys
 import tempfile
 import threading
@@ -153,6 +164,7 @@ from intensity_slam_tpu_torch.pipeline import (fused, geometric_slam, loop, mapp
                                                odometry, slam)
 from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
+from intensity_slam_tpu_torch.utils import device as devices
 from intensity_slam_tpu_torch.utils import se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
@@ -169,13 +181,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def loop_trajectory(n_out=14, n_turn=8, speed=0.4) -> se3.Pose:
@@ -385,20 +390,26 @@ def time_cuda_batch(fn, n: int, reps=20, warmup=3) -> float:
                      warmup=warmup) / n
 
 
-def kernel_device_us(fn, name: str, n: int = 33) -> float:
+def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3) -> float:
     """Median device-side duration in microseconds of the kernel `name`
-    over `n` calls of `fn`, from a `torch.profiler` trace."""
+    over `n` calls of `fn`, from a `torch.profiler` trace that saw all `n`
+    launches.  CUPTI now and then drops a launch from a trace (32 of 33
+    seen), so up to `traces` traces are taken."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type.name == "CUDA" and name in e.name]
-    check(len(durs) >= n, f"the profiler saw {len(durs)} launches of {name}")
-    return statistics.median(durs)
+    seen = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type.name == "CUDA" and name in e.name]
+        if len(durs) >= n:
+            return statistics.median(durs)
+        seen.append(len(durs))
+    raise SmokeFailure(f"the profiler saw {seen} launches of {name} in {traces} traces of {n}")
 
 
 def kernel_phase(dev, cfg) -> dict:
@@ -1006,7 +1017,7 @@ def stream_phase(dev) -> dict:
           f"{[(a['frame'], round(1e3 * r['t_frame'][a['frame']], 3)) for a in acc]}")
     print(f"  end to end {n / r['wall']:.3f} scans/s ({r['wall']:.2f} s for {n} frames, "
           f"sync counter on); upload slot waits {runner.upload_waits}; peak device "
-          f"memory {peak_mb:.0f} MiB; {gpu_name_and_power()}")
+          f"memory {peak_mb:.0f} MiB; {devices.describe('cuda')}")
     print(f"  the runner against SlamSystem.process on the circuit's first 40 frames "
           f"(median ms per frame after the first, in run order): "
           f"{[(k, round(v, 3)) for k, v in overhead]}")
@@ -1350,7 +1361,7 @@ def refine_phase(dev, circuit: dict) -> dict:
               f"{dpose:.3g} m, |landmark| diff max {dlm:.3g} m, median {dlm_med:.3g} m, BA "
               f"final cost rel diff "
               f"{dcost:.3g}; refined trajectory ATE {ate_of(est, gt):.4f} m against the "
-              f"rendered poses (online {circuit['ate']:.4f} m); {gpu_name_and_power()}")
+              f"rendered poses (online {circuit['ate']:.4f} m); {devices.describe('cuda')}")
         print(f"  host ms: refine {1e3 * t_refine:.3f} (mesh=None), {1e3 * t_mesh:.3f} "
               f"then {1e3 * t_mesh2:.3f} (NCCL group; the first call sets up the "
               f"communicator), shard_backend_state {1e3 * t_shard:.3f}; peak device "
@@ -1579,6 +1590,117 @@ def profile_phase(dev) -> None:
         print(f"    {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}")
 
 
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+QUICK_START_FRAMES = 40        # README: tools/torch_replay.py --frames 40 --check-ate
+ALIASED_FRAMES = 320           # the aliased corridor's first loops close by here
+BAG_TOPIC = b"/os_cloud_node/points"
+
+
+def _bag_record(fields: dict, payload: bytes) -> bytes:
+    """One rosbag 2.0 record: its header fields, then its payload."""
+    hdr = b"".join(struct.pack("<I", len(k) + 1 + len(v)) + k + b"=" + v
+                   for k, v in fields.items())
+    return (struct.pack("<I", len(hdr)) + hdr
+            + struct.pack("<I", len(payload)) + payload)
+
+
+def synthetic_bag(path: str, frames, height: int, width: int) -> None:
+    """A rosbag 2.0 file of organized sensor_msgs/PointCloud2 scans (x, y,
+    z, intensity as float32) on BAG_TOPIC, in one bz2 chunk."""
+    conn = struct.pack("<I", 0)
+    fields = b"".join(struct.pack("<I", len(n)) + n + struct.pack("<IBI", off, 7, 1)
+                      for n, off in ((b"x", 0), (b"y", 4), (b"z", 8), (b"intensity", 12)))
+    chunk = _bag_record({b"op": b"\x07", b"conn": conn, b"topic": BAG_TOPIC},
+                        _bag_record({b"topic": BAG_TOPIC,
+                                     b"type": b"sensor_msgs/PointCloud2"}, b"")[4:-4])
+    for ts, xyz, inten in frames:
+        sec, nsec = int(ts), int(round((ts - int(ts)) * 1e9))
+        data = np.concatenate([xyz, inten[:, None]], 1).astype(np.float32).tobytes()
+        msg = (struct.pack("<III", 0, sec, nsec) + struct.pack("<I", 2) + b"os"
+               + struct.pack("<II", height, width) + struct.pack("<I", 4) + fields
+               + b"\x00" + struct.pack("<II", 16, 16 * width)
+               + struct.pack("<I", len(data)) + data + b"\x01")
+        chunk += _bag_record({b"op": b"\x02", b"conn": conn,
+                              b"time": struct.pack("<II", sec, nsec)}, msg)
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        f.write(_bag_record({b"op": b"\x05", b"compression": b"bz2",
+                             b"size": struct.pack("<I", len(chunk))}, bz2.compress(chunk)))
+
+
+def tools_phase(dev) -> dict:
+    """The user-facing and accuracy tools at full width on the card: the
+    README's quick start (`tools/torch_replay.py --frames 40 --check-ate`,
+    the `slam` pipeline) and the same 40 frames through `--pipeline
+    odometry`; `torch_bag2islog.convert` of a bag of three full-width scans,
+    read back through `ScanLog`; `torch_loop_eval.run_one` on the aliased
+    corridor (os0_64_config, every channel, sensor noise seed 0), which
+    must close a correct loop.  Kernel launches are counted over the whole
+    phase."""
+    sys.path.insert(0, TOOLS_DIR)
+    import torch_bag2islog
+    import torch_loop_eval
+    import torch_replay
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    for pipeline in ("slam", "odometry"):
+        print(f"tools: torch_replay.py --frames {QUICK_START_FRAMES} --check-ate "
+              f"--pipeline {pipeline}")
+        rc = torch_replay.main(["--frames", str(QUICK_START_FRAMES), "--check-ate",
+                                "--pipeline", pipeline, "--device", str(dev)])
+        check(rc == 0, f"torch_replay --pipeline {pipeline} failed its ATE check")
+
+    cfg = config.os0_64_config()
+    sc = cfg.sensor
+    poses = synthetic.corridor_trajectory(3, speed=0.35, device=dev)
+    world = synthetic.corridor_world(device=dev)
+    frames = []
+    for k in range(3):
+        xyz, inten = synthetic.render_scan(se3.Pose(poses.q[k], poses.t[k]), world, sc)
+        frames.append((12.5 + 0.1 * k, xyz.cpu().numpy(), inten.cpu().numpy()))
+    tmp = tempfile.mkdtemp(prefix="islam_bag.")
+    try:
+        bag, out = os.path.join(tmp, "in.bag"), os.path.join(tmp, "out.islog")
+        synthetic_bag(bag, frames, sc.image_height, sc.image_width)
+        n = torch_bag2islog.convert(bag, out, BAG_TOPIC.decode(), sc.image_height,
+                                    sc.image_width)
+        with ScanLog(out) as log:
+            same = [abs(log[k].timestamp - ts) < 1e-6
+                    and np.array_equal(log[k].xyz, xyz)
+                    and np.array_equal(log[k].intensity, inten)
+                    for k, (ts, xyz, inten) in enumerate(frames)]
+            shape = (log.height, log.width, len(log))
+        print(f"tools: torch_bag2islog.convert wrote {n} frames of {shape[0]}x{shape[1]} "
+              f"({os.path.getsize(out)} bytes); read back through ScanLog: "
+              f"{'equal' if all(same) else same}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(n == 3 and shape == (sc.image_height, sc.image_width, 3) and all(same),
+          f"bag2islog: {n} frames, shape {shape}, equal {same}")
+
+    world, poses = torch_loop_eval._world("aliased", ALIASED_FRAMES, dev)
+    t0 = time.perf_counter()
+    xyz, inten = torch_loop_eval._render(world, poses, cfg, 0, ALIASED_FRAMES, dev)
+    t_render = time.perf_counter() - t0
+    gt = synthetic.relative_positions(poses).cpu().numpy()
+    res = torch_loop_eval.run_one(cfg, xyz, inten, gt, 0, ALIASED_FRAMES, dev)
+    launches = read_launches()
+    print(f"tools: torch_loop_eval.run_one, aliased corridor, {ALIASED_FRAMES} noisy "
+          f"frames (rendered in {t_render:.1f} s): {res['keyframes']} keyframes, "
+          f"{res['accepted_loops']} accepted loops, {res['correct_loops']} correct, "
+          f"precision {res['precision']}, recall {res['recall']}, ATE corrected "
+          f"{res['ate_corrected_m']:.4f} m, live {res['ate_live_m']:.4f} m, "
+          f"{res['scans_per_sec']} scans/s")
+    print(f"  tools phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
+          f"{launches['nn']}, pack kernel launches {launches['pack']}; "
+          f"{devices.describe('cuda')}")
+    check(res["correct_loops"] >= 1, f"the aliased corridor closed no correct loop: {res}")
+    check(launches["nn"] >= 1 and launches["pack"] >= 1,
+          f"the tools phase did not launch both kernels: {launches}")
+    return dict(launches=launches)
+
+
 KERNELS = (
     ("nn", "nn_packed_kernel"),
     ("pack", "pack_kernel"),
@@ -1588,9 +1710,10 @@ KERNELS = (
 def kernel_records(kern: dict, by_path: dict) -> dict:
     """The per-kernel record; `launches` sums the main paths' runs (the
     slice's `SlamSystem.process`, the circuit's `StreamingRunner.run`, the
-    refine phase's full-width `SlamSystem(cfg, mesh=...)` run, part b, and
-    its small-config card run, part c), each counted from 0 just before its
-    run and read just after it; `launches_by_path` splits it."""
+    refine phase's full-width `SlamSystem(cfg, mesh=...)` run, part b, its
+    small-config card run, part c, and the tools phase), each counted from 0
+    just before its run and read just after it; `launches_by_path` splits
+    it."""
     return {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1611,7 +1734,7 @@ def main() -> int:
     args = sys.argv[1:]
     only = args[args.index("--phase") + 1] if "--phase" in args else None
     dev = torch.device("cuda", 0)
-    print(gpu_name_and_power())
+    print(devices.describe("cuda"))
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     report = pallas_nn.build(verbose=True)
@@ -1635,7 +1758,8 @@ def main() -> int:
                   "checkpoint": lambda: checkpoint_phase(dev),
                   "geoslam": lambda: geoslam_phase(dev),
                   "stream": lambda: stream_phase(dev),
-                  "refine": lambda: refine_phase(dev, stream_phase(dev))}
+                  "refine": lambda: refine_phase(dev, stream_phase(dev)),
+                  "tools": lambda: tools_phase(dev)}
         phases[only]()
         return 0
     kern = kernel_phase(dev, cfg)
@@ -1648,11 +1772,13 @@ def main() -> int:
     geoslam_phase(dev)
     st = stream_phase(dev)
     rf = refine_phase(dev, st)
-    print(gpu_name_and_power())
+    tl = tools_phase(dev)
+    print(devices.describe("cuda"))
     print(json.dumps(kernel_records(kern, {"slice": sl["launches"],
                                            "stream": st["launches"],
                                            "refine": rf["online"]["launches"],
-                                           "refine-small": rf["small"]["launches"]})))
+                                           "refine-small": rf["small"]["launches"],
+                                           "tools": tl["launches"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -487,6 +487,13 @@ def scan_deltas(poses: se3.Pose) -> se3.Pose:
     return deltas
 
 
+def relative_positions(poses: se3.Pose) -> torch.Tensor:
+    """(F, 3) positions of `poses` in the frame of the first: the ground
+    truth of an estimate that starts at the identity."""
+    p0 = se3.inverse(se3.Pose(poses.q[0], poses.t[0]))
+    return se3.compose(p0, poses).t
+
+
 def render_sequence(poses: se3.Pose, world: World, cfg: SensorConfig,
                     distort: bool = False,
                     noise: SensorNoise | None = None,

@@ -388,3 +388,15 @@ def match_retry(
     keep_n = torch.where(
         first_bad, torch.ceil(nm * keep_frac_retry).to(torch.int32), keep_n1)
     return _matches(ia, best_b, dist, cand & (rank < keep_n), num_mutual)
+
+
+def matched_points(fa: Features, fb: Features, m: Matches):
+    """Gather matched 3D correspondences: (src (K,3), dst (K,3), w (K,)).
+
+    Weight is zero unless both endpoints have valid 3D lifts — the analogue
+    of the reference's zero-point filtering before the Ceres solve."""
+    si, di = m.src_idx.long(), m.dst_idx.long()
+    src = fa.xyz[si]
+    dst = fb.xyz[di]
+    w = (m.valid & fa.xyz_valid[si] & fb.xyz_valid[di]).float()
+    return src, dst, w

@@ -27,8 +27,11 @@ Port notes:
 - The 3x3 landmark blocks are inverted in closed form (cofactors over the
   determinant): `torch.linalg.inv` checks for singular blocks and so reads
   back to the host.  The reference's `has_lm` mask zeroes empty landmarks.
-- `index_add_` on CUDA adds in atomic order: sums may differ from run to run
-  in their last bits.
+- `_segment_sum` adds on CUDA through `index_put_(accumulate=True)`, which
+  sorts the indices and adds each row's duplicates in one order, so that a
+  solve is the same from run to run (and a one-rank group's equals
+  `mesh=None`'s); `index_add_` would add in atomic order there, and the
+  solve's conditioning turns last-bit differences into centimetres.
 """
 
 from __future__ import annotations
@@ -60,7 +63,11 @@ class BAResult(NamedTuple):
 
 
 def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of `vals` summed by `idx` into `n` rows (`jax.ops.segment_sum`),
+    in the same order on every run (port notes)."""
     out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
+    if vals.device.type == "cuda":
+        return out.index_put_((idx.long(),), vals, accumulate=True)
     return out.index_add_(0, idx, vals)
 
 

@@ -144,3 +144,37 @@ def odometry_step(
         features=feats,
     )
     return new_state, out
+
+
+def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,
+                 cfg: SlamConfig) -> OdometryOutput:
+    """Replay a whole sequence through `odometry_step` on the sequence's
+    device, in a Python loop (the JAX package's `lax.scan`).  Returns the
+    outputs stacked over frames, with `features` dropped to bound memory;
+    nothing is read back to the host."""
+    dev = xyz_seq.device
+    mask = projection.detection_mask(cfg.sensor, device=dev)
+    state = init_state(cfg, device=dev)
+    outs = []
+    for k in range(xyz_seq.shape[0]):
+        scan = projection.project_organized(xyz_seq[k], inten_seq[k], cfg.sensor)
+        state, out = odometry_step(state, scan, times[k], mask, cfg)
+        outs.append(out)
+    stack = lambda f: torch.stack([f(o) for o in outs])
+    return OdometryOutput(
+        pose=Pose(stack(lambda o: o.pose.q), stack(lambda o: o.pose.t)),
+        delta=Pose(stack(lambda o: o.delta.q), stack(lambda o: o.delta.t)),
+        skip=stack(lambda o: o.skip),
+        is_keyframe=stack(lambda o: o.is_keyframe),
+        num_good=stack(lambda o: o.num_good),
+        num_mutual=stack(lambda o: o.num_mutual),
+        solve_cost=stack(lambda o: o.solve_cost),
+        features=None,
+    )
+
+
+def ate_rmse(est_pos: torch.Tensor, gt_pos: torch.Tensor) -> torch.Tensor:
+    """Absolute trajectory error without alignment: both trajectories start
+    at the identity."""
+    d = est_pos - gt_pos
+    return torch.sqrt(torch.mean(torch.sum(d * d, dim=-1)))

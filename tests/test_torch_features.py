@@ -237,3 +237,35 @@ def test_match_retry_exact(scans, case):
     for f in jm._fields:
         np.testing.assert_array_equal(np.asarray(getattr(jm, f)),
                                       _np(getattr(tm, f)), err_msg=f)
+
+
+def test_matched_points_exact():
+    """tests/test_features.py:88's pair (the corridor seen from p0 and from
+    p0 moved by a small twist, 512 features), at small_test_config: the
+    reference's features and matches go into both packages'
+    `matched_points`, and the gathered points and weights are bit-equal."""
+    import intensity_slam_tpu.utils.se3 as J3
+    cfg = config.small_test_config()
+    p0 = J3.Pose(jnp.array([1.0, 0, 0, 0]), jnp.array([2.0, 0.0, 0.8]))
+    p1 = J3.compose(p0, J3.se3_exp(jnp.array([0.0, 0.0, 0.02, 0.25, 0.02, 0.0])))
+    world = synthetic.corridor_world()
+    mask = JP.detection_mask(cfg.sensor)
+    fs = [JF.extract(JP.project_organized(*synthetic.render_scan(p, world, cfg.sensor),
+                                          cfg.sensor), mask, cfg.feature, num_features=512)
+          for p in (p0, p1)]
+    m = JF.match(fs[1].desc, fs[1].xyz_valid, fs[0].desc, fs[0].xyz_valid,
+                 keep_frac=cfg.feature.match_keep_frac,
+                 max_hamming=cfg.feature.max_hamming)
+    assert int(m.num_good) >= 10
+    jout = JF.matched_points(fs[1], fs[0], m)
+
+    def to_torch(nt, cls):
+        return cls(*(torch.from_numpy(np.asarray(a).view(np.int32)
+                                      if np.asarray(a).dtype == np.uint32
+                                      else np.array(a)) for a in nt))
+
+    tout = TF.matched_points(to_torch(fs[1], TF.Features), to_torch(fs[0], TF.Features),
+                             to_torch(m, TF.Matches))
+    for a, b in zip(jout, tout):
+        assert np.asarray(a).tobytes() == b.numpy().tobytes()
+    assert float(tout[2].sum()) >= 10

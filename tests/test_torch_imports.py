@@ -12,9 +12,12 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+TOOLS = ("torch_nn_tune", "torch_refine_draws", "torch_replay", "torch_bag2islog",
+         "torch_visualize", "torch_os0_eval", "torch_loop_eval", "torch_refine_eval",
+         "torch_soak", "torch_capacity_sensitivity")
 FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_nn_tune.py",
-    ROOT / "tools" / "torch_refine_draws.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
+    ROOT / "tools" / f"{name}.py" for name in TOOLS]
 FORBIDDEN = ("jax", "jaxlib", "intensity_slam_tpu")
 
 
@@ -37,6 +40,9 @@ def test_no_jax_imports(path):
 def test_guard_sees_the_package():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py") in FILES
     names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert "bench_torch.py" in names
+    for name in TOOLS:
+        assert f"tools/{name}.py" in names and (ROOT / "tools" / f"{name}.py").exists()
     for mod in ("ops/curvature.py", "ops/ground.py", "pipeline/geometric.py",
                 "pipeline/slam.py", "utils/index.py", "interop.py",
                 "ops/grid_hash.py", "pipeline/mapping.py", "pipeline/fused.py",
@@ -45,7 +51,7 @@ def test_guard_sees_the_package():
                 "utils/checkpoint.py", "pipeline/geometric_slam.py",
                 "pipeline/laser_mapping.py", "parallel/multiproc.py",
                 "parallel/dist_ba.py", "parallel/ba_builder.py", "parallel/dist_pgo.py",
-                "parallel/dist_backend.py", "parallel/live_demo.py"):
+                "parallel/dist_backend.py", "parallel/live_demo.py", "utils/device.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
 
 

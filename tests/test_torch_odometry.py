@@ -122,3 +122,48 @@ def test_point_to_point_jacobian_is_jacfwd():
     b = TS.solve_pose(TPose.identity(device="cpu"), plain)
     assert int(a.iterations) == int(b.iterations)
     torch.testing.assert_close(a.pose.t, b.pose.t, atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def sequences():
+    """Both packages' `run_sequence` over the 12-frame corridor of
+    tests/test_odometry.py:12-37 at small_test_config, with the
+    reference's ground truth relative to its first pose."""
+    cfg, tcfg = config.small_test_config(), tconfig.small_test_config()
+    poses = synthetic.corridor_trajectory(12, speed=0.35, yaw_rate=0.01)
+    xyz, inten = synthetic.render_sequence(poses, synthetic.corridor_world(),
+                                           cfg.sensor)
+    times = np.arange(12, dtype=np.float32) * cfg.sensor.scan_period
+    jo = JO.run_sequence(xyz, inten, jnp.asarray(times), cfg)
+    to = TO.run_sequence(torch.from_numpy(np.array(xyz)),
+                         torch.from_numpy(np.array(inten)),
+                         torch.from_numpy(times), tcfg)
+    import intensity_slam_tpu.utils.se3 as J3
+    p0 = J3.inverse(J3.Pose(poses.q[0], poses.t[0]))
+    gt = np.asarray(jax.vmap(lambda q, t: J3.compose(p0, J3.Pose(q, t)).t)(poses.q,
+                                                                           poses.t))
+    return jo, to, gt
+
+
+@pytest.mark.parametrize("field", ["skip", "is_keyframe", "num_good", "num_mutual"])
+def test_run_sequence_flags_equal(sequences, field):
+    """Skips, keyframes and match counts equal; features dropped in both."""
+    jo, to, _ = sequences
+    np.testing.assert_array_equal(np.asarray(getattr(jo, field)),
+                                  getattr(to, field).numpy())
+    assert jo.features is None and to.features is None
+    assert bool(to.skip[0]) and not bool(to.skip[1:].any())
+
+
+def test_run_sequence_poses_and_ate(sequences):
+    """Poses within tests/test_torch_slice.py's 0.1 m / 0.02; `ate_rmse` on
+    the same inputs equal to 1e-6, and both ATEs under the reference's own
+    0.08 m bound."""
+    jo, to, gt = sequences
+    np.testing.assert_allclose(to.pose.t.numpy(), np.asarray(jo.pose.t), atol=0.1)
+    np.testing.assert_allclose(to.pose.q.numpy(), np.asarray(jo.pose.q), atol=0.02)
+    np.testing.assert_allclose(to.delta.t.numpy(), np.asarray(jo.delta.t), atol=0.1)
+    ja = float(JO.ate_rmse(jo.pose.t, jnp.asarray(gt)))
+    ta = float(TO.ate_rmse(torch.from_numpy(np.asarray(jo.pose.t)), torch.from_numpy(gt)))
+    np.testing.assert_allclose(ta, ja, rtol=1e-6)
+    assert float(TO.ate_rmse(to.pose.t, torch.from_numpy(gt))) < 0.08 and ja < 0.08

@@ -29,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from intensity_slam_tpu_torch import config  # noqa: E402
 from intensity_slam_tpu_torch.ops import pallas_nn  # noqa: E402
+from intensity_slam_tpu_torch.utils import device as devices  # noqa: E402
 
 # (sources per thread, warps per block, blocks per cluster)
 VARIANTS = [(1, 8, 8), (2, 8, 8), (4, 8, 8), (8, 4, 8), (2, 4, 8), (1, 16, 8),
@@ -50,7 +51,7 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    print(chip_smoke.gpu_name_and_power())
+    print(devices.describe(dev))
     cfg = chip_smoke.slice_config(config.SlamConfig())
     src, tgt, mask = chip_smoke.kernel_sets(dev, cfg)["keyframe_clouds"]
     pi, pd = pallas_nn.nearest_neighbor_plain(src, tgt, mask)
