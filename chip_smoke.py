@@ -107,7 +107,26 @@ Phases (any failure exits non-zero before the result lines are printed):
    `tools/torch_loop_eval.py`'s `run_one` on the aliased corridor
    (os0_64_config, every loop channel, sensor noise seed 0, 320 frames),
    which must close at least one correct loop (its precision printed).
-   Kernel launches are counted over the whole phase (`tools`).
+   Kernel launches are counted over the whole phase (`tools`);
+13. measure: the measurement and scale-out tools at full width, each
+   through its `main(argv)` on the card with its JSON in a temporary
+   directory: `torch_bench_full --frames 32` (front end, back end,
+   `StreamingRunner.run` and `run_preloaded` apart; the streaming and the
+   preloaded keyframes must be equal), `torch_stream_probe --frames 32`
+   (writer on, writer off and a bare `fused_step` loop must end with equal
+   keyframes and equal final positions; 32 frames, cut from 64 to keep the
+   phase under 150 s), `torch_slope_probe --frames 48`
+   (the frame classes must sum to 47), `torch_profile_stages --reps 5`
+   (every one of the ten stages must show device time and a kernel count),
+   `torch_scaling_bench --devices 1` (BA solve time against size),
+   `torch_scaling_projection --reps 2` and `torch_multiproc_product` (one
+   NCCL rank, product scale: 1024 nodes and 200 loop edges, the PGO and
+   the refine within 1e-3 m of the dense and the local solves, the ATE
+   lowered).  Times are printed, not held.  Kernel launches are counted
+   over the whole phase (`measure`): at this depth no tool reaches a loop
+   candidate (a 32-frame corridor, the circuit's first lap), so the NN
+   kernels launch 0 times there; the kernel phase holds them and the slice,
+   stream, refine and tools paths launch them.
 
 Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
 curvature features, geometric fallback on a skipped frame, mux, ground
@@ -121,7 +140,7 @@ The line before the last is the per-kernel JSON record; the last line is
     python3 chip_smoke.py --phase NAME
 
 with NAME one of kernel, grid, small, fallback, slice, stream-small,
-checkpoint, geoslam, stream, refine, tools
+checkpoint, geoslam, stream, refine, tools, measure
 
 builds the kernels and runs that one phase alone (no result lines; refine
 runs the stream phase first, for its keyframe store).
@@ -139,6 +158,7 @@ import collections
 import contextlib
 import dataclasses
 import bz2
+import importlib
 import json
 import math
 import os
@@ -168,8 +188,7 @@ from intensity_slam_tpu_torch.utils import device as devices
 from intensity_slam_tpu_torch.utils import se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = devices.H100_SXM
 NN_FLOPS_PER_PAIR = 8          # 3 subtracts, 3 multiplies, 2 adds
 P_ICP, M_ICP = 2048, 6144      # keyframe_cloud_size, (2*submap_window+1)*2048
 
@@ -1701,6 +1720,90 @@ def tools_phase(dev) -> dict:
     return dict(launches=launches)
 
 
+# the measurement and scale-out tools at the measure phase's depth
+MEASURE_TOOLS = (
+    ("torch_bench_full", ["--frames", "32"]),
+    ("torch_stream_probe", ["--frames", "32"]),
+    ("torch_slope_probe", ["--frames", "48"]),
+    ("torch_profile_stages", ["--reps", "5"]),
+    ("torch_scaling_bench", ["--devices", "1"]),
+    ("torch_scaling_projection", ["--reps", "2"]),
+    ("torch_multiproc_product", []),
+)
+PRODUCT_NODES, PRODUCT_LOOPS = 1024, 200
+
+
+def measure_phase(dev) -> dict:
+    """The measurement and scale-out tools on the card, each through its
+    `main(argv)`, their records read back and held: the tools' own checks
+    (their exit codes), the slope classes summing to the timed frames,
+    device time and a kernel count on every profile row, the product-scale
+    solves within 1e-3 m of the dense and local ones with a lower ATE.
+    Kernel launches are counted over the whole phase."""
+    sys.path.insert(0, TOOLS_DIR)
+    t_phase = time.perf_counter()
+    reset_launches()
+    rec = {}
+    tmp = tempfile.mkdtemp(prefix="islam_measure.")
+    try:
+        for name, argv in MEASURE_TOOLS:
+            out = os.path.join(tmp, f"{name}.json")
+            print(f"measure: {name} {' '.join(argv)}", flush=True)
+            t0 = time.perf_counter()
+            rc = importlib.import_module(name).main(argv + ["--device", dev.type, "--out", out])
+            check(rc == 0, f"measure: {name} {' '.join(argv)} exited {rc}")
+            with open(out) as f:
+                rec[name] = json.load(f)
+            print(f"measure: {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_launches()
+
+    bf, sp = rec["torch_bench_full"], rec["torch_stream_probe"]
+    print(f"measure: bench_full front end {bf['frontend_scans_per_sec']:.2f} scans/s, back end "
+          f"{bf['backend_ms_per_keyframe']:.1f} ms a keyframe, streaming "
+          f"{bf['streaming_scans_per_sec']:.2f} scans/s ({bf['streaming_keyframes']} kf), "
+          f"preloaded {bf['streaming_preloaded_scans_per_sec']:.2f}; stream probe writer on "
+          f"{sp['preloaded_writer_on_sps']}, off {sp['preloaded_writer_off_sps']}, bare "
+          f"{sp['bare_dispatch_sps']} scans/s")
+    sl = rec["torch_slope_probe"]
+    counted = sum(c["count"] for c in sl["classes"].values())
+    print("measure: slope classes " + ", ".join(
+        f"{k} {v['count']} x {v['mean_ms']} ms (max {v['max_ms']})"
+        for k, v in sl["classes"].items()))
+    check(counted == sl["frames"] - 1,
+          f"measure: slope classes count {counted} frames of {sl['frames'] - 1}")
+    rows = rec["torch_profile_stages"]["rows"]
+    for r in rows:
+        print(f"measure: profile {r['stage']}: host {r['host_ms']:.3f} ms, device "
+              f"{r['device_us']} us, {r['kernels']} kernels, bound {r['bound_us']} us "
+              f"({r['bound_by']})")
+    check(len(rows) == 10 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
+                                  and isinstance(r["kernels"], int) and r["kernels"] > 0
+                                  for r in rows),
+          f"measure: profile rows without device time or kernels: {rows}")
+    sb = rec["torch_scaling_bench"]["sections"]["single_device_solve_vs_size"]["per_poses"]
+    pj = rec["torch_scaling_projection"]
+    print("measure: BA solve " + ", ".join(f"{v['observations']} obs {v['ms_per_solve']} ms"
+                                           for v in sb.values())
+          + f"; PGO K={pj['graph']['K']} {pj['measured_single_chip']['t_solve_s']} s, "
+          f"Amdahl limit {pj['amdahl_speedup_limit']}")
+    mp = rec["torch_multiproc_product"]
+    print(f"measure: product {mp['graph_nodes']} nodes, {mp['loop_edges']} loop edges, "
+          f"{mp['ba_observations']} BA observations, ATE {mp['pgo_ate_before_m']} -> "
+          f"{mp['pgo_ate_after_m']} m, PGO {mp['pgo_max_abs_dt_vs_dense_reference_m']:.3g} m "
+          f"and refine {mp['refine_max_abs_dt_vs_single_process_m']:.3g} m off")
+    check(mp["graph_nodes"] == PRODUCT_NODES and mp["loop_edges"] == PRODUCT_LOOPS
+          and mp["pgo_max_abs_dt_vs_dense_reference_m"] < 1e-3
+          and mp["refine_max_abs_dt_vs_single_process_m"] < 1e-3
+          and mp["pgo_ate_after_m"] < mp["pgo_ate_before_m"],
+          f"measure: the product-scale record fails its checks: {mp}")
+    print(f"  measure phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
+          f"{launches['nn']}, pack kernel launches {launches['pack']}; "
+          f"{devices.describe('cuda')}")
+    return dict(launches=launches)
+
+
 KERNELS = (
     ("nn", "nn_packed_kernel"),
     ("pack", "pack_kernel"),
@@ -1711,9 +1814,9 @@ def kernel_records(kern: dict, by_path: dict) -> dict:
     """The per-kernel record; `launches` sums the main paths' runs (the
     slice's `SlamSystem.process`, the circuit's `StreamingRunner.run`, the
     refine phase's full-width `SlamSystem(cfg, mesh=...)` run, part b, its
-    small-config card run, part c, and the tools phase), each counted from 0
-    just before its run and read just after it; `launches_by_path` splits
-    it."""
+    small-config card run, part c, the tools phase and the measure phase),
+    each counted from 0 just before its run and read just after it;
+    `launches_by_path` splits it."""
     return {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1759,7 +1862,8 @@ def main() -> int:
                   "geoslam": lambda: geoslam_phase(dev),
                   "stream": lambda: stream_phase(dev),
                   "refine": lambda: refine_phase(dev, stream_phase(dev)),
-                  "tools": lambda: tools_phase(dev)}
+                  "tools": lambda: tools_phase(dev),
+                  "measure": lambda: measure_phase(dev)}
         phases[only]()
         return 0
     kern = kernel_phase(dev, cfg)
@@ -1773,12 +1877,14 @@ def main() -> int:
     st = stream_phase(dev)
     rf = refine_phase(dev, st)
     tl = tools_phase(dev)
+    ms = measure_phase(dev)
     print(devices.describe("cuda"))
     print(json.dumps(kernel_records(kern, {"slice": sl["launches"],
                                            "stream": st["launches"],
                                            "refine": rf["online"]["launches"],
                                            "refine-small": rf["small"]["launches"],
-                                           "tools": tl["launches"]})))
+                                           "tools": tl["launches"],
+                                           "measure": ms["launches"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

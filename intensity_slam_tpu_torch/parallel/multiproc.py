@@ -27,7 +27,8 @@ device, the same math and no collective.
   spawns `--procs` gloo workers on this host (CPU tensors), which build the
   same live system, then run the cross-process pose-graph solve and the
   sharded-store refine and hold both to the single-process solve; rank 0
-  writes the JSON record to `--out`.
+  writes the JSON record to `--out`.  `launch(..., module=...)` spawns
+  another worker the same way (the scale-out tools' ranks).
 """
 
 from __future__ import annotations
@@ -280,21 +281,28 @@ def _kill(ps) -> None:
 
 
 def launch(procs: int, out_path: str | None, timeout_s: float = 600.0,
-           retries: int = 1) -> int:
+           retries: int = 1, module: str | None = None, args=()) -> int:
     """Spawn `procs` workers on localhost and wait for them, at most
     `timeout_s` in all per attempt.  Returns the workers' exit codes ORed
     together (124 for a timeout).  A worker that fails ends the attempt at
     once (the others are killed, never left waiting in a collective).  One
     retry by default: the ranks' first connect has a bounded window, and a
-    loaded machine can push a worker's start past it."""
+    loaded machine can push a worker's start past it.
+
+    The worker is `module` (a dotted module name run with `-m`, or the path
+    of a script; this module's own check when None), started as
+    `module --worker PID --procs N --coordinator HOST:PORT --timeout S
+    [--out PATH] *args`."""
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    module = __spec__.name if module is None else module
+    entry = [module] if module.endswith(".py") else ["-m", module]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     rc = -1
     for attempt in range(retries + 1):
-        args = ["--procs", str(procs), "--coordinator", f"127.0.0.1:{_free_port()}",
-                "--timeout", str(timeout_s)] + (["--out", out_path] if out_path else [])
-        ps = [subprocess.Popen([sys.executable, "-m", __spec__.name, "--worker",
-                                str(pid)] + args, env=env, cwd=root)
+        common = ["--procs", str(procs), "--coordinator", f"127.0.0.1:{_free_port()}",
+                  "--timeout", str(timeout_s)] + (["--out", out_path] if out_path else [])
+        ps = [subprocess.Popen([sys.executable] + entry + ["--worker", str(pid)] + common
+                               + [str(a) for a in args], env=env, cwd=root)
               for pid in range(procs)]
         deadline = time.monotonic() + timeout_s
         rc = 0

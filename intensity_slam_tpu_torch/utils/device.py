@@ -8,8 +8,24 @@ its maximum runs slower under load."""
 from __future__ import annotations
 
 import subprocess
+from typing import NamedTuple
 
 import torch
+
+
+class Peaks(NamedTuple):
+    """A card's published peak rates: FP32 outside the tensor cores and the
+    device memory's bandwidth."""
+
+    fp32_flops: float       # FLOP/s
+    bytes_per_s: float
+
+
+# NVIDIA's H100 SXM data sheet (dense rates, at the full 700 W power limit)
+H100_SXM = Peaks(fp32_flops=67e12, bytes_per_s=3.35e12)
+
+# published peaks by the card's name as torch gives it
+PEAKS = {"NVIDIA H100 80GB HBM3": H100_SXM}
 
 
 def resolve(name) -> torch.device:
@@ -37,6 +53,15 @@ def describe(dev) -> str:
         return out.stdout.strip().splitlines()[dev.index or 0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return torch.cuda.get_device_name(dev)
+
+
+def peaks(dev) -> Peaks | None:
+    """The published peaks of the card `dev` names; None on the CPU and
+    for a card that `PEAKS` lacks."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return None
+    return PEAKS.get(torch.cuda.get_device_name(dev))
 
 
 def synchronize(dev) -> None:
