@@ -126,7 +126,33 @@ Phases (any failure exits non-zero before the result lines are printed):
    over the whole phase (`measure`): at this depth no tool reaches a loop
    candidate (a 32-frame corridor, the circuit's first lap), so the NN
    kernels launch 0 times there; the kernel phase holds them and the slice,
-   stream, refine and tools paths launch them.
+   stream, refine and tools paths launch them;
+14. multisession: the batched step (`slam.slam_step_batched`) at full
+   width (os0_64_config, 64x1024): B = 8 circuit streams of 24 frames,
+   stream b starting at frame b of one 31-frame render, stream 3 at
+   constant intensity (its intensity odometry skips every frame, so the
+   geometric fallback's sub-batch runs on the card).  Every session is held
+   against an unbatched `slam_step` run of its stream with the same draws
+   (its generator's seed): `skip`, `is_keyframe`, `num_good`, `ground_ok`
+   and the host flags equal on every frame, the odometry pose within 1e-4
+   m and the scan-to-map pose within 0.1 m (the largest differences
+   printed).  The batch sums some products in another order than one
+   session does (a batched matrix product, reduction or factorization
+   against a single one), and the scan-to-map solve amplifies a rounding
+   difference as it does an input's (ROADMAP C.7: one float32 rounding
+   step of the input moves it 0.16-0.40 m over a longer run).  Then 8 copies of stream 0 from
+   one seed against one (B = 1) and against the unbatched step, 6 frames:
+   host syncs by call site equal at B = 1, at B = 8 and unbatched at every
+   site but the solver's loop test, and there one a loop test (a batched
+   solve tests as long as its slowest session; rounding decides a solve's
+   last iterations, so the counts of iterations may differ between the
+   three); the device kernels of the sixth step printed by name, B = 8
+   against B = 1, and held under 1.5 times B = 1's (a loop over the
+   sessions would launch 8 times as many).  Printed, not
+   held: ms per step and total scans/s at B = 1 and 8, peak memory.  Then
+   `tools/torch_scaling_multisession.py --batches 1,8 --frames 12 --warm 4`.
+   Kernel launches are counted over the B = 8 run (`multisession`): the
+   step reaches no loop candidate, so the NN kernels launch 0 times.
 
 Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
 curvature features, geometric fallback on a skipped frame, mux, ground
@@ -140,7 +166,7 @@ The line before the last is the per-kernel JSON record; the last line is
     python3 chip_smoke.py --phase NAME
 
 with NAME one of kernel, grid, small, fallback, slice, stream-small,
-checkpoint, geoslam, stream, refine, tools, measure
+checkpoint, geoslam, stream, refine, tools, measure, multisession
 
 builds the kernels and runs that one phase alone (no result lines; refine
 runs the stream phase first, for its keyframe store).
@@ -168,7 +194,6 @@ import statistics
 import struct
 import sys
 import tempfile
-import threading
 import time
 import warnings
 
@@ -178,7 +203,7 @@ import torch.distributed as dist
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import grid_hash, pallas_nn, projection, voxel
+from intensity_slam_tpu_torch.ops import grid_hash, pallas_nn, projection, solver, voxel
 from intensity_slam_tpu_torch.parallel import ba_builder, dist_ba, dist_backend, multiproc
 from intensity_slam_tpu_torch.pipeline import (fused, geometric_slam, loop, mapping,
                                                odometry, slam)
@@ -234,31 +259,8 @@ def _sync_untracked(device):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-@contextlib.contextmanager
-def sync_counter(enabled: bool):
-    """Count host syncs by call site for the length of the block (CUDA's
-    sync debug mode warns on each one); yields a Counter filled as they
-    come.  A sync made on another thread than the caller's is keyed with
-    that thread's name in brackets."""
-    sites = collections.Counter()
-    caller = threading.current_thread()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "called a synchronizing CUDA operation" in str(message):
-            site = f"{os.path.basename(filename)}:{lineno}"
-            th = threading.current_thread()
-            sites[site if th is caller else f"[{th.name}] {site}"] += 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        if enabled:
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield sites
-        finally:
-            if enabled:
-                torch.cuda.set_sync_debug_mode(0)
+# host syncs by call site for the length of a block (a Counter)
+sync_counter = devices.count_syncs
 
 
 @contextlib.contextmanager
@@ -1804,6 +1806,195 @@ def measure_phase(dev) -> dict:
     return dict(launches=launches)
 
 
+MS_SESSIONS, MS_FRAMES, MS_FLAT = 8, 24, 3
+MS_POSE_TOL_M = 1e-4       # odometry pose, batched against unbatched
+MS_MAP_TOL_M = 0.1         # scan-to-map pose (see the phase's docstring)
+MS_COUNT_FRAMES = 6
+
+
+@contextlib.contextmanager
+def solver_loop_tests():
+    """Count the loop tests (host reads) that `solver.solve_pose`'s calls
+    make for the length of the block: a solve that stops after k < iters
+    iterations tests k + 1 times, one that reaches `iters` tests iters
+    times, and a batched solve iterates as long as its slowest session."""
+    fn = solver.solve_pose
+    calls = []
+
+    def counting(*a, **k):
+        out = fn(*a, **k)
+        calls.append((out.iterations, k.get("iters", 20)))
+        return out
+
+    solver.solve_pose = counting
+    try:
+        yield calls
+    finally:
+        solver.solve_pose = fn
+
+
+def loop_tests(calls) -> int:
+    """The loop tests of `solver_loop_tests`' recorded calls (read after
+    the sync counter has closed: the reads are the counter's own)."""
+    tests = 0
+    for its, cap in calls:
+        k = int(its.max())
+        tests += k + 1 if k < cap else cap
+    return tests
+
+
+def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False):
+    """Step the sessions `seeds` over (F, B, ...) streams with
+    `slam_step_batched`; returns the outputs and the steps' seconds, and
+    with `count` the host syncs by call site and the solver's loop tests
+    over every step but the first (whose constants come over to the card)
+    and the last, and the last step's device kernels by name (a
+    `torch.profiler` trace)."""
+    st = slam.init_batched_state(cfg, seeds, device=dev)
+    outs, secs = [], []
+    F = xb.shape[0]
+    sites, kernels, tests = collections.Counter(), collections.Counter(), 0
+    from torch.profiler import ProfilerActivity, profile
+    for k in range(F):
+        last = count and k == F - 1
+        counted = count and 0 < k < F - 1
+        with contextlib.ExitStack() as stack:
+            step_sites = stack.enter_context(sync_counter(counted))
+            step_tests = stack.enter_context(solver_loop_tests())
+            prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+                    if last else None)
+            _sync_untracked(dev)
+            t0 = time.perf_counter()
+            st, out = slam.slam_step_batched(st, xb[k], ib[k], k * 0.1, mask, cfg)
+            _sync_untracked(dev)
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        if counted:
+            sites.update(step_sites)
+            tests += loop_tests(step_tests)
+        if last:
+            kernels.update(e.name for e in prof.events() if e.device_type.name == "CUDA")
+    return outs, secs, sites, tests, kernels
+
+
+def solver_loop_line() -> int:
+    """The line of `solver.solve_pose`'s loop test (its one host read an
+    iteration), as the sync counter keys it."""
+    import inspect
+    lines, first = inspect.getsourcelines(solver.solve_pose)
+    return first + next(i for i, ln in enumerate(lines) if "if not bool(" in ln)
+
+
+def multisession_phase(dev) -> dict:
+    """The batched step at full width: 8 sessions held against their
+    unbatched runs, the host syncs and device kernels per step at B = 1 and
+    B = 8, then the scaling tool at reduced depth."""
+    t_phase = time.perf_counter()
+    cfg = config.os0_64_config()
+    B, F = MS_SESSIONS, MS_FRAMES
+    poses = synthetic.circuit_trajectory(F + B - 1, speed=0.4, device=dev)
+    xyz, inten = synthetic.render_sequence(poses, synthetic.circuit_world(device=dev),
+                                           cfg.sensor)
+    xb = torch.stack([xyz[b:b + F] for b in range(B)], 1)          # (F, B, N, 3)
+    ib = torch.stack([inten[b:b + F] for b in range(B)], 1).clone()
+    ib[:, MS_FLAT] = 100.0
+    mask = projection.detection_mask(cfg.sensor, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    outs, secs, *_ = _ms_run(cfg, xb, ib, range(B), mask, dev)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    skips = [[h.skip for h in o.host] for o in outs]
+    check(all(s[MS_FLAT] for s in skips[1:]) and not all(all(s) for s in skips[1:]),
+          f"multisession: the batch is not mixed (skips {skips})")
+    worst = {"odom_pose": 0.0, "pose": 0.0}
+    for b in range(B):
+        st = slam.init_state(cfg, seed=b, device=dev)
+        for k in range(F):
+            st, o = slam.slam_step(st, xb[k, b], ib[k, b], k * 0.1, mask, cfg)
+            bo = outs[k]
+            for f in ("skip", "is_keyframe", "num_good", "ground_ok"):
+                check(int(getattr(o, f)) == int(getattr(bo, f)[b]),
+                      f"multisession: session {b} frame {k}: {f} {int(getattr(o, f))} alone, "
+                      f"{int(getattr(bo, f)[b])} in the batch")
+            check(o.host == bo.host[b], f"multisession: session {b} frame {k}: host flags "
+                  f"{o.host} alone, {bo.host[b]} in the batch")
+            for name in worst:
+                d = float((getattr(o, name).t - getattr(bo, name).t[b]).abs().max())
+                worst[name] = max(worst[name], d)
+    print(f"multisession: {B} sessions x {F} frames at full width held against their "
+          f"unbatched runs: discrete outputs equal, largest odometry pose difference "
+          f"{worst['odom_pose']:.3g} m (bar {MS_POSE_TOL_M}), scan-to-map pose "
+          f"{worst['pose']:.3g} m (bar {MS_MAP_TOL_M}); fallback session skipped "
+          f"{sum(s[MS_FLAT] for s in skips)} of {F} frames", flush=True)
+    check(worst["odom_pose"] <= MS_POSE_TOL_M and worst["pose"] <= MS_MAP_TOL_M,
+          f"multisession: a batched session strays {worst} m from its unbatched run")
+
+    # host syncs and device kernels per step: B copies of stream 0 from one
+    # seed against one, and against the unbatched step
+    n = MS_COUNT_FRAMES
+    one = xb[:n, :1].contiguous(), ib[:n, :1].contiguous()
+    many = (xb[:n, :1].expand(n, B, *xb.shape[2:]).contiguous(),
+            ib[:n, :1].expand(n, B, *ib.shape[2:]).contiguous())
+    _, t1, s1, n1, k1 = _ms_run(cfg, *one, [0], mask, dev, count=True)
+    _, t8, s8, n8, k8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True)
+    st = slam.init_state(cfg, seed=0, device=dev)
+    s0, n0 = collections.Counter(), 0
+    for k in range(n - 1):
+        with sync_counter(k > 0) as step_sites, solver_loop_tests() as step_tests:
+            st, _ = slam.slam_step(st, one[0][k, 0], one[1][k, 0], k * 0.1, mask, cfg)
+        if k > 0:
+            s0.update(step_sites)
+            n0 += loop_tests(step_tests)
+    loop_site = "solver.py:" + str(solver_loop_line())
+    print(f"multisession: host syncs over steps 1..{n - 2}: B=1 {sum(s1.values())}, "
+          f"B={B} {sum(s8.values())}, unbatched {sum(s0.values())}; solver loop tests "
+          f"{n1}, {n8}, {n0} (at {loop_site}); device kernels of step {n - 1}: B=1 "
+          f"{sum(k1.values())}, B={B} {sum(k8.values())}", flush=True)
+    print_sync_sites(s8)
+    for name, runs in ((f"B=1", (s1, n1)), (f"B={B}", (s8, n8)), ("unbatched", (s0, n0))):
+        sites, tests = runs
+        check(sites[loop_site] == tests,
+              f"multisession: {name}: {sites[loop_site]} syncs at the solver's loop test "
+              f"for {tests} loop tests")
+    others = [{k: v for k, v in c.items() if k != loop_site} for c in (s1, s8, s0)]
+    check(others[0] == others[1] == others[2],
+          f"multisession: host syncs outside the solver's loop test differ: B=1 "
+          f"{others[0]}, B={B} {others[1]}, unbatched {others[2]}")
+    diff = collections.Counter(k8)
+    diff.subtract(k1)
+    print("multisession: device kernels, B=8 against B=1, by name: " + "; ".join(
+        f"{v:+d} {name[:70]}" for name, v in sorted(diff.items(), key=lambda x: -abs(x[1]))
+        if v)[:1500], flush=True)
+    check(sum(k8.values()) < 1.5 * sum(k1.values()),
+          f"multisession: {sum(k8.values())} kernels a step at B={B} against "
+          f"{sum(k1.values())} at B=1: the launches grow with the sessions")
+    ms1, ms8 = 1e3 * statistics.median(t1[1:]), 1e3 * statistics.median(t8[1:])
+    print(f"multisession: {ms1:.2f} ms a step at B=1 ({1e3 / ms1:.1f} scans/s), "
+          f"{ms8:.2f} ms at B={B} ({B * 1e3 / ms8:.1f} scans/s in all; the staggered run "
+          f"{1e3 * statistics.median(secs[1:]):.2f} ms); peak memory of the B={B} run "
+          f"{peak / 2**20:.0f} MiB; {devices.describe('cuda')}", flush=True)
+
+    sys.path.insert(0, TOOLS_DIR)
+    tmp = tempfile.mkdtemp(prefix="islam_ms.")
+    try:
+        out = os.path.join(tmp, "ms.json")
+        rc = importlib.import_module("torch_scaling_multisession").main(
+            ["--batches", f"1,{B}", "--frames", "12", "--warm", "4", "--device", "cuda",
+             "--out", out])
+        check(rc == 0, f"multisession: the scaling tool exited {rc}")
+        with open(out) as f:
+            tool = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(set(tool["batch"]) == {"1", str(B)} and "one_chip_batch8_efficiency" in tool,
+          f"multisession: the scaling tool's record lacks keys: {tool}")
+    print(f"  multisession phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
+          f"{launches['nn']}, pack kernel launches {launches['pack']}", flush=True)
+    return dict(launches=launches)
+
+
 KERNELS = (
     ("nn", "nn_packed_kernel"),
     ("pack", "pack_kernel"),
@@ -1814,7 +2005,8 @@ def kernel_records(kern: dict, by_path: dict) -> dict:
     """The per-kernel record; `launches` sums the main paths' runs (the
     slice's `SlamSystem.process`, the circuit's `StreamingRunner.run`, the
     refine phase's full-width `SlamSystem(cfg, mesh=...)` run, part b, its
-    small-config card run, part c, the tools phase and the measure phase),
+    small-config card run, part c, the tools phase, the measure phase and
+    the multisession phase's B = 8 run),
     each counted from 0 just before its run and read just after it;
     `launches_by_path` splits it."""
     return {"kernels": [{
@@ -1863,7 +2055,8 @@ def main() -> int:
                   "stream": lambda: stream_phase(dev),
                   "refine": lambda: refine_phase(dev, stream_phase(dev)),
                   "tools": lambda: tools_phase(dev),
-                  "measure": lambda: measure_phase(dev)}
+                  "measure": lambda: measure_phase(dev),
+                  "multisession": lambda: multisession_phase(dev)}
         phases[only]()
         return 0
     kern = kernel_phase(dev, cfg)
@@ -1878,13 +2071,15 @@ def main() -> int:
     rf = refine_phase(dev, st)
     tl = tools_phase(dev)
     ms = measure_phase(dev)
+    mu = multisession_phase(dev)
     print(devices.describe("cuda"))
     print(json.dumps(kernel_records(kern, {"slice": sl["launches"],
                                            "stream": st["launches"],
                                            "refine": rf["online"]["launches"],
                                            "refine-small": rf["small"]["launches"],
                                            "tools": tl["launches"],
-                                           "measure": ms["launches"]})))
+                                           "measure": ms["launches"],
+                                           "multisession": mu["launches"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,7 @@ prefix-doubling order, so the box sums add the same pairs of floats as the
 reference does.  Per-segment picks use a stable descending sort: equal
 scores (the eligibility masks make long runs of -inf) come out in column
 order, as `jax.lax.top_k` gives them.  Everything emits fixed-capacity point
-buffers + masks.
+buffers + masks, with a leading session axis when the scan has one.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import GeometricConfig, SensorConfig
+from ..utils import index
 from .projection import ScanImage
 from .voxel import voxel_downsample
 
@@ -101,25 +102,25 @@ def _topk_per_segment_multi(scores: list, eligibles: list, ks: list,
     """Per-(ring, segment) top-k for several (score, eligible, k) channels in
     one stable descending sort: the channels stack on a leading axis and each
     slices its own prefix.  Returns [(rows, cols, ok), ...] aligned with the
-    inputs."""
-    H, W = scores[0].shape
+    inputs, each (..., H * S * k_c)."""
+    lead = scores[0].shape[:-2]
+    H, W = scores[0].shape[-2:]
     seg_w = W // num_segments
     kmax = max(ks)
     dev = scores[0].device
     s = torch.stack([torch.where(e, sc, -torch.inf)
                      for sc, e in zip(scores, eligibles)])
-    s = s[:, :, : seg_w * num_segments].reshape(
-        len(scores), H, num_segments, seg_w)
+    s = s[..., : seg_w * num_segments].reshape(
+        (len(scores),) + lead + (H, num_segments, seg_w))
     val, idx = torch.sort(s, dim=-1, descending=True, stable=True)
-    val, idx = val[..., :kmax], idx[..., :kmax]          # (C, H, S, kmax)
-    col = idx + torch.arange(num_segments, device=dev)[None, None, :, None] * seg_w
-    row = torch.arange(H, device=dev)[None, :, None, None].expand(col.shape)
+    val, idx = val[..., :kmax], idx[..., :kmax]          # (C, ..., H, S, kmax)
+    col = idx + torch.arange(num_segments, device=dev)[:, None] * seg_w
+    row = torch.arange(H, device=dev)[:, None, None].expand(col.shape)
     ok = torch.isfinite(val)
     out = []
     for c, k_per in enumerate(ks):
-        out.append((row[c, :, :, :k_per].reshape(-1),
-                    col[c, :, :, :k_per].reshape(-1),
-                    ok[c, :, :, :k_per].reshape(-1)))
+        out.append(tuple(a[c, ..., :k_per].reshape(lead + (-1,))
+                         for a in (row, col, ok)))
     return out
 
 
@@ -137,16 +138,16 @@ def extract_features(
     # valid neighbours count.
     r = scan.range
     v = scan.valid
-    lf, rt = torch.roll(r, 1, dims=1), torch.roll(r, -1, dims=1)
+    lf, rt = torch.roll(r, 1, dims=-1), torch.roll(r, -1, dims=-1)
     gap = 0.3 + 0.05 * r
-    v_next = torch.roll(v, -1, dims=1)
+    v_next = torch.roll(v, -1, dims=-1)
     e1 = (r - rt > gap) & v & v_next        # i farther than i+1
     e2 = (rt - r > gap) & v & v_next        # i+1 farther than i
     occ = torch.zeros_like(e1)
     for d in range(0, 6):
-        occ = occ | torch.roll(e1, -d, dims=1)   # e1 at i+d marks i..i+5
+        occ = occ | torch.roll(e1, -d, dims=-1)  # e1 at i+d marks i..i+5
     for d in range(1, 7):
-        occ = occ | torch.roll(e2, d, dims=1)    # e2 at i-d marks i+1..i+6
+        occ = occ | torch.roll(e2, d, dims=-1)   # e2 at i-d marks i+1..i+6
     # near-parallel beams: both azimuth neighbour diffs > 2 % of range
     parallel = ((torch.abs(r - lf) > 0.02 * r)
                 & (torch.abs(rt - r) > 0.02 * r))
@@ -168,8 +169,11 @@ def extract_features(
             cfg.num_segments,
         )
 
+    batch = scan.range.dim() - 2
+
     def gather(rr, cc, ok):
-        return scan.xyz[rr, cc], ok & scan.valid[rr, cc], rr.to(torch.int32)
+        return (index.at(scan.xyz, rr, cc, batch=batch),
+                ok & index.at(scan.valid, rr, cc, batch=batch), rr.to(torch.int32))
 
     sharp, sharp_m, sharp_ring = gather(sharp_r, sharp_c, sharp_ok)
     less_sharp, less_sharp_m, ls_ring = gather(ls_r, ls_c, ls_ok)
@@ -178,8 +182,9 @@ def extract_features(
     # less-flat: flat-eligible points, azimuth-strided, voxel-downsampled
     # (`:560-565`); the capacity bounds the buffer
     stride = max(1, cfg.less_flat_column_stride)
-    all_flat_pts = scan.xyz[:, ::stride].reshape(-1, 3)
-    all_flat_mask = flat_elig[:, ::stride].reshape(-1)
+    lead = scan.range.shape[:-2]
+    all_flat_pts = scan.xyz[..., ::stride, :].reshape(lead + (-1, 3))
+    all_flat_mask = flat_elig[..., ::stride].reshape(lead + (-1,))
     less_flat, less_flat_m = voxel_downsample(
         all_flat_pts, all_flat_mask, cfg.less_flat_voxel, cfg.max_surf_points
     )

@@ -17,6 +17,9 @@ Port notes:
   mapped to +-1 (exact: its partial sums are small integers).
 - `lax.top_k` and `jnp.argsort` put ties in index order; here a stable sort
   does the same.
+- Every function takes an optional leading session axis on all of its
+  inputs (a batch of independent frames, what `jax.vmap` makes of it); the
+  per-session reads go through `utils.index.at`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as Fn
 
 from ..config import FeatureConfig
+from ..utils import index
 from . import conv2d
 from .projection import ScanImage
 
@@ -93,8 +97,11 @@ def corner_response(img: torch.Tensor, window: int = 5) -> torch.Tensor:
 
 
 def _maxpool2d(x: torch.Tensor, r: int) -> torch.Tensor:
-    """(2r+1)^2 max filter, -inf outside the image (reduce_window "SAME")."""
-    return Fn.max_pool2d(x[None, None], 2 * r + 1, stride=1, padding=r)[0, 0]
+    """(2r+1)^2 max filter over (..., H, W), -inf outside the image
+    (reduce_window "SAME")."""
+    pooled = Fn.max_pool2d(x.reshape((-1, 1) + x.shape[-2:]), 2 * r + 1,
+                           stride=1, padding=r)
+    return pooled.reshape(x.shape)
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,16 +118,16 @@ def detect(
     nms_radius: int = 2,
     min_score: float = 1.0,
 ):
-    """Top-K corners: returns (uv (K,2) int32, uv_sub (K,2) f32 subpixel,
-    score (K,), valid (K,))."""
-    H, W = img.shape
+    """Top-K corners of (..., H, W) images: returns (uv (..., K, 2) int32,
+    uv_sub (..., K, 2) f32 subpixel, score (..., K), valid (..., K))."""
+    H, W = img.shape[-2:]
     resp_raw = corner_response(img)
     row = torch.arange(H, device=img.device)[:, None]
     border_ok = (row >= _PATCH_Y) & (row < H - _PATCH_Y)
     resp = torch.where(detect_mask & border_ok, resp_raw, -torch.inf)
     keep = resp >= _maxpool2d(resp, nms_radius)  # NMS
     resp = torch.where(keep, resp, -torch.inf)
-    score, flat_idx = top_k(resp.reshape(-1), num_features)
+    score, flat_idx = top_k(resp.flatten(-2), num_features)
     uv = torch.stack([flat_idx % W, flat_idx // W], dim=-1).to(torch.int32)
     valid = score > min_score
     uv_sub = _refine_subpixel(resp_raw, uv)
@@ -130,11 +137,12 @@ def detect(
 def _refine_subpixel(resp: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Quadratic sub-pixel refinement of response peaks (2x2 Newton step on
     the local quadratic model); offsets clamped to half a pixel."""
-    H, W = resp.shape
-    u, v = uv[:, 0].long(), uv[:, 1].long()
+    H, W = resp.shape[-2:]
+    u, v = uv[..., 0].long(), uv[..., 1].long()
 
     def at(du, dv):
-        return resp[torch.clamp(v + dv, 0, H - 1), (u + du) % W]
+        return index.at(resp, torch.clamp(v + dv, 0, H - 1), (u + du) % W,
+                        batch=resp.dim() - 2)
 
     c = at(0, 0)
     dx = (at(1, 0) - at(-1, 0)) * 0.5
@@ -155,23 +163,25 @@ def _refine_subpixel(resp: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 def _bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear sample with azimuth wrap in x and clamp in y."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    batch = img.dim() - 2
     x0 = torch.floor(x).long()
     y0 = torch.clamp(torch.floor(y).long(), 0, H - 2)
     fx, fy = x - x0.float(), y - y0.float()
     x0m, x1m = x0 % W, (x0 + 1) % W
-    v00 = img[y0, x0m]
-    v01 = img[y0, x1m]
-    v10 = img[y0 + 1, x0m]
-    v11 = img[y0 + 1, x1m]
+    v00 = index.at(img, y0, x0m, batch=batch)
+    v01 = index.at(img, y0, x1m, batch=batch)
+    v10 = index.at(img, y0 + 1, x0m, batch=batch)
+    v11 = index.at(img, y0 + 1, x1m, batch=batch)
     return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
 
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(K, 256) bool -> (K, 8) int32 words; bit i of word w is sample 32*w+i."""
-    K = bits.shape[0]
+    """(..., K, 256) bool -> (..., K, 8) int32 words; bit i of word w is
+    sample 32*w+i."""
     shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
-    words = torch.sum(bits.reshape(K, 8, 32).long() << shifts, dim=-1)
+    words = torch.sum(bits.reshape(bits.shape[:-1] + (8, 32)).long() << shifts,
+                      dim=-1)
     # words are in [0, 2^32): reinterpret the low 32 bits as int32
     return torch.where(words >= (1 << 31), words - (1 << 32), words).to(torch.int32)
 
@@ -186,23 +196,26 @@ def describe(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.T
     """Oriented BRIEF-256 for K keypoints: returns (desc (K,8) int32 words,
     angle (K,)).  Orientation by intensity centroid over a rectangular patch;
     rotated offsets round to integer pixels of the blurred image."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    batch = img.dim() - 2
     blurred = _box_blur(img, 5)
-    ul, vl = uv[:, 0].long(), uv[:, 1].long()
+    ul, vl = uv[..., 0].long(), uv[..., 1].long()
     u, v = ul.float(), vl.float()
     m10 = conv2d.sep_filter(blurred, _ONES_COL, _DX_ROW)
     m01 = conv2d.sep_filter(blurred, _DY_COL, _ONES_ROW)
-    angle = torch.atan2(m01[vl, ul], m10[vl, ul])
+    angle = torch.atan2(index.at(m01, vl, ul, batch=batch),
+                        index.at(m10, vl, ul, batch=batch))
     ca, sa = torch.cos(angle), torch.sin(angle)
     pat = _pattern(_PATTERN, img.device)
     px = pat[None, :, :, 0]
     py = pat[None, :, :, 1]
-    rx = ca[:, None, None] * px - sa[:, None, None] * py + u[:, None, None]
-    ry = sa[:, None, None] * px + ca[:, None, None] * py + v[:, None, None]
+    c3 = lambda a: a[..., None, None]
+    rx = c3(ca) * px - c3(sa) * py + c3(u)
+    ry = c3(sa) * px + c3(ca) * py + c3(v)
     xi = torch.round(rx).long() % W
     yi = torch.clamp(torch.round(ry).long(), 0, H - 1)
-    samples = blurred.reshape(-1)[yi * W + xi]               # (K, 256, 2)
-    bits = samples[:, :, 0] < samples[:, :, 1]
+    samples = index.at(blurred.flatten(-2), yi * W + xi, batch=batch)  # (K, 256, 2)
+    bits = samples[..., 0] < samples[..., 1]
     return _pack_bits(bits), angle
 
 
@@ -211,15 +224,16 @@ def describe_dense(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     keypoint at (u, v) is blur[v+dy1, u+dx1] < blur[v+dy2, u+dx2] with both
     axes wrapped, exactly what the rolled-plane read gives at (v, u).  Only
     the K keypoints' 256 pairs are sampled.  Returns (K, 8) int32 words."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     blur = _box_blur(img, 5)
     pat = _pattern(_PATTERN_INT, img.device)                 # (256, 2, 2)
-    u = uv[:, 0].long()[:, None, None]
-    v = uv[:, 1].long()[:, None, None]
+    u = uv[..., 0].long()[..., None, None]
+    v = uv[..., 1].long()[..., None, None]
     xi = (u + pat[None, :, :, 0]) % W
     yi = (v + pat[None, :, :, 1]) % H
-    samples = blur.reshape(-1)[yi * W + xi]                  # (K, 256, 2)
-    return _pack_bits(samples[:, :, 0] < samples[:, :, 1])
+    samples = index.at(blur.flatten(-2), yi * W + xi,
+                       batch=img.dim() - 2)                  # (K, 256, 2)
+    return _pack_bits(samples[..., 0] < samples[..., 1])
 
 
 def lift_subpixel(scan: ScanImage, uv_int: torch.Tensor, uv_sub: torch.Tensor):
@@ -227,25 +241,26 @@ def lift_subpixel(scan: ScanImage, uv_int: torch.Tensor, uv_sub: torch.Tensor):
     the 4 neighbor ranges must agree with the center range within 2% + 5 cm,
     else fall back to the integer pixel's point
     (`intensity_feature_tracker.cpp:1082`)."""
-    H, W = scan.range.shape
-    x, y = uv_sub[:, 0], uv_sub[:, 1]
+    H, W = scan.range.shape[-2:]
+    batch = scan.range.dim() - 2
+    x, y = uv_sub[..., 0], uv_sub[..., 1]
     x0 = torch.floor(x).long()
     y0 = torch.clamp(torch.floor(y).long(), 0, H - 2)
-    ui, vi = uv_int[:, 0].long(), uv_int[:, 1].long()
-    r_c = scan.range[vi, ui]
+    ui, vi = uv_int[..., 0].long(), uv_int[..., 1].long()
+    r_c = index.at(scan.range, vi, ui, batch=batch)
 
     def rng(dy, dx):
-        return scan.range[y0 + dy, (x0 + dx) % W]
+        return index.at(scan.range, y0 + dy, (x0 + dx) % W, batch=batch)
 
     tol = 0.02 * r_c + 0.05
     same_surf = (
         (torch.abs(rng(0, 0) - r_c) < tol) & (torch.abs(rng(0, 1) - r_c) < tol)
         & (torch.abs(rng(1, 0) - r_c) < tol) & (torch.abs(rng(1, 1) - r_c) < tol)
     )
-    xyz_b = torch.stack([_bilinear(scan.xyz[:, :, ch], x, y) for ch in range(3)],
-                        dim=1)
-    xyz_i = scan.xyz[vi, ui]
-    return torch.where(same_surf[:, None], xyz_b, xyz_i)
+    xyz_b = torch.stack([_bilinear(scan.xyz[..., ch], x, y) for ch in range(3)],
+                        dim=-1)
+    xyz_i = index.at(scan.xyz, vi, ui, batch=batch)
+    return torch.where(same_surf[..., None], xyz_b, xyz_i)
 
 
 def depth_stable_mask(scan: ScanImage, rel: float = 0.1,
@@ -256,13 +271,14 @@ def depth_stable_mask(scan: ScanImage, rel: float = 0.1,
     pixels in the 7x7 support, and the center pixel valid."""
     r = scan.range
     v = scan.valid
-    H = r.shape[0]
+    H = r.shape[-2]
     dev = r.device
     up = torch.clamp(torch.arange(H, device=dev) - 1, 0, H - 1)
     down = torch.clamp(torch.arange(H, device=dev) + 1, 0, H - 1)
 
     def nbrs(a):
-        return [a[up], a[down], torch.roll(a, 1, dims=1), torch.roll(a, -1, dims=1)]
+        return [a[..., up, :], a[..., down, :], torch.roll(a, 1, dims=-1),
+                torch.roll(a, -1, dims=-1)]
 
     jump = torch.stack([
         torch.where(nv, torch.abs(r - n), 0.0) for n, nv in zip(nbrs(r), nbrs(v))
@@ -284,11 +300,12 @@ def extract(scan: ScanImage, detect_mask: torch.Tensor, cfg: FeatureConfig,
         desc, angle = describe(scan.intensity, uv)
     else:
         desc = describe_dense(scan.intensity, uv)
-        angle = torch.zeros(K, dtype=torch.float32, device=uv.device)
+        angle = torch.zeros(uv.shape[:-1], dtype=torch.float32, device=uv.device)
     xyz = lift_subpixel(scan, uv, uv_sub)
     # near-zero filter (`extractPointsAndFilterZeroValue`,
     # intensity_feature_tracker.cpp:1071-1099)
-    xyz_valid = valid & scan.valid[uv[:, 1].long(), uv[:, 0].long()]
+    xyz_valid = valid & index.at(scan.valid, uv[..., 1].long(), uv[..., 0].long(),
+                                 batch=scan.valid.dim() - 2)
     return Features(uv, score, angle, desc, valid, xyz, xyz_valid)
 
 
@@ -383,11 +400,11 @@ def match_retry(
         hamming_matrix(fa_desc, fb_desc), fa_valid, fb_valid, max_hamming)
     nm = num_mutual.float()
     keep_n1 = torch.ceil(nm * keep_frac).to(torch.int32)
-    num_good1 = torch.sum(cand & (rank < keep_n1))
+    num_good1 = torch.sum(cand & (rank < keep_n1[..., None]), dim=-1)
     first_bad = num_good1 < min_good
     keep_n = torch.where(
         first_bad, torch.ceil(nm * keep_frac_retry).to(torch.int32), keep_n1)
-    return _matches(ia, best_b, dist, cand & (rank < keep_n), num_mutual)
+    return _matches(ia, best_b, dist, cand & (rank < keep_n[..., None]), num_mutual)
 
 
 def matched_points(fa: Features, fb: Features, m: Matches):

@@ -22,6 +22,14 @@ and cell for cell: a set-associative voxel hash with octant point slots.
 Functions return new tensors and leave their inputs untouched.  No function
 here reads a device value back to the host.
 
+A batch of B sessions' maps (`empty(..., batch=(B,))`: way keys (B, S, W),
+slots (B, S*W + 1, 8, 3)) is one flat table of B*S sets: `insert` folds the
+session into the set index (set s of session b is b*S + s) and the point
+ids (b*N + i), so each claim round stays one scatter-min over all sessions,
+"lowest point index wins" holds within each session, and every session's
+overflow cell is reset as one map's is.  `knn` and `evict_far` read and
+drop per session.
+
 torch has no usable uint32 arithmetic, so the murmur3 finalizer runs on
 int64 values held in [0, 2^32) and masked after every step; the 32-bit
 multiply is split into 16-bit halves so no int64 product can overflow.
@@ -59,15 +67,18 @@ class VoxelHashMap(NamedTuple):
     num_points: torch.Tensor  # () int32 (wins counted per insert)
 
 
-def empty(num_sets: int, ways: int = 4, device="cuda") -> VoxelHashMap:
+def empty(num_sets: int, ways: int = 4, device="cuda", batch: tuple = ()
+          ) -> VoxelHashMap:
+    """An empty map; `batch=(B,)` gives B sessions' empty maps."""
+    b = tuple(batch)
     return VoxelHashMap(
-        way_keys=torch.full((num_sets, ways), EMPTY_KEY, dtype=torch.int32,
+        way_keys=torch.full(b + (num_sets, ways), EMPTY_KEY, dtype=torch.int32,
                             device=device),
-        pts=torch.zeros((num_sets * ways + 1, 8, 3), dtype=torch.float32,
+        pts=torch.zeros(b + (num_sets * ways + 1, 8, 3), dtype=torch.float32,
                         device=device),
-        valid=torch.zeros((num_sets * ways + 1, 8), dtype=torch.bool,
+        valid=torch.zeros(b + (num_sets * ways + 1, 8), dtype=torch.bool,
                           device=device),
-        num_points=torch.zeros((), dtype=torch.int32, device=device),
+        num_points=torch.zeros(b, dtype=torch.int32, device=device),
     )
 
 
@@ -157,10 +168,18 @@ def _scatter_min(size: int, idx: torch.Tensor, vals: torch.Tensor,
     return out.scatter_reduce_(0, idx, vals, "amin", include_self=True)
 
 
+def _session_offsets(B: int, N: int, device) -> torch.Tensor:
+    """(B, 1) int64 b*N: session b's first row in a flat (B*N,) table."""
+    return index.batch_arange(B, device)[:, None] * N
+
+
 def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
            cell_size: float) -> VoxelHashMap:
-    """Insert a masked batch of points (N, 3).  Deterministic, idempotent."""
-    S, W = m.way_keys.shape
+    """Insert a masked batch of points (N, 3) (per session: (B, N, 3) into B
+    maps).  Deterministic, idempotent."""
+    S, W = m.way_keys.shape[-2:]
+    if m.way_keys.dim() == 3:
+        return _insert_sessions(m, pts, mask, cell_size)
     N = pts.shape[0]
     dev = pts.device
     c = _voxel_coord(pts, cell_size)                 # (N, 3)
@@ -168,6 +187,54 @@ def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     sidx = _set_index(key, S)                        # (N,)
     mask = mask & torch.all(torch.abs(c) < _COORD_OFF, dim=-1)
     ids = torch.arange(N, dtype=torch.int32, device=dev)
+    return _insert_flat(m, pts, mask, c, key, sidx, sidx, ids, None, cell_size)
+
+
+def _insert_sessions(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
+                     cell_size: float) -> VoxelHashMap:
+    """`insert` for B sessions: one flat table of B*S sets, points renumbered
+    b*N + i, cells b*(S*W + 1) + cell (see the module docstring)."""
+    B, S, W = m.way_keys.shape
+    N = pts.shape[1]
+    C = S * W + 1
+    dev = pts.device
+    c = _voxel_coord(pts, cell_size)                 # (B, N, 3)
+    key = _pack(c)                                   # (B, N)
+    sidx = _set_index(key, S)                        # (B, N) within the session
+    mask = mask & torch.all(torch.abs(c) < _COORD_OFF, dim=-1)
+    fset = sidx + _session_offsets(B, S, dev)        # (B, N) in the flat table
+    ids = (torch.arange(N, dtype=torch.int32, device=dev)
+           + _session_offsets(B, N, dev).to(torch.int32))
+    flat_map = VoxelHashMap(
+        way_keys=m.way_keys.reshape(B * S, W),
+        pts=m.pts.reshape(B * C, 8, 3),
+        valid=m.valid.reshape(B * C, 8),
+        num_points=m.num_points)
+    out = _insert_flat(flat_map, pts.reshape(B * N, 3), mask.reshape(-1),
+                       c.reshape(B * N, 3), key.reshape(-1), fset.reshape(-1),
+                       sidx.reshape(-1), ids.reshape(-1),
+                       _session_offsets(B, C, dev).expand(B, N).reshape(-1),
+                       cell_size, sessions=B)
+    return VoxelHashMap(
+        way_keys=out.way_keys.reshape(B, S, W),
+        pts=out.pts.reshape(B, C, 8, 3),
+        valid=out.valid.reshape(B, C, 8),
+        num_points=out.num_points)
+
+
+def _insert_flat(m: VoxelHashMap, pts, mask, c, key, fset, sidx, ids, cell0,
+                 cell_size: float, sessions: int = 0) -> VoxelHashMap:
+    """The insert proper over one flat table: `m.way_keys` (T, W) with T
+    sets, point p claiming in set fset[p]; its cell within its session is
+    sidx[p]*W + way, and with `sessions` > 0 its session's cells start at
+    row cell0[p] of `m.pts` (the last row of each session's block is that
+    session's overflow cell) and num_points is per session."""
+    T, W = m.way_keys.shape
+    N = pts.shape[0]
+    dev = pts.device
+    batched = sessions > 0
+    S = T // sessions if batched else T
+    over = (lambda cell: cell + cell0) if batched else (lambda cell: cell)
 
     # resolve/claim a way per point: W rounds of scatter-min claims.  Round 1
     # claims, round 2 lets same-key losers match the winner's key, rounds
@@ -177,25 +244,25 @@ def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     way = torch.full((N,), -1, dtype=torch.int64, device=dev)
     for _ in range(W):
         # match existing ways
-        wk = way_keys[sidx]                          # (N, W)
+        wk = way_keys[fset]                          # (N, W)
         has_hit, hit_way = _first_true(wk == key[:, None])
         way = torch.where((way < 0) & has_hit & mask, hit_way, way)
         # claim the first empty way of each set for the unresolved points
         unresolved = mask & (way < 0)
         has_empty, tgt_way = _first_true(wk == EMPTY_KEY)
         wants = unresolved & has_empty
-        slot = sidx * W + tgt_way
+        slot = fset * W + tgt_way
         # one winner per (set, way): lowest point index
-        claim = _scatter_min(S * W, torch.where(wants, slot, S * W - 1),
+        claim = _scatter_min(T * W, torch.where(wants, slot, T * W - 1),
                              torch.where(wants, ids, _INT32_MAX), _INT32_MAX)
         winner = wants & (claim[slot] == ids)
         # winners write their key; every other point writes EMPTY_KEY into
         # the spare last entry, which is cut off again
         wk_flat = torch.cat([way_keys.reshape(-1),
                              way_keys.new_full((1,), EMPTY_KEY)])
-        wk_flat[torch.where(winner, slot, S * W)] = torch.where(
+        wk_flat[torch.where(winner, slot, T * W)] = torch.where(
             winner, key, EMPTY_KEY)
-        way_keys = wk_flat[:-1].reshape(S, W)
+        way_keys = wk_flat[:-1].reshape(T, W)
         way = torch.where(winner, tgt_way, way)
 
     placed = mask & (way >= 0)
@@ -204,32 +271,40 @@ def insert(m: VoxelHashMap, pts: torch.Tensor, mask: torch.Tensor,
     oct_idx = _octant(pts, c, cell_size)             # (N,)
     centers = _octant_center(c, oct_idx, cell_size)
     d_new = _sq_norm3(pts - centers)
-    cellw = torch.where(placed, sidx * W + way, S * W)   # S*W: overflow cell
+    local = torch.where(placed, sidx * W + way, S * W)   # S*W: overflow cell
+    cellw = over(local)
+    R = m.pts.shape[0]                               # all sessions' cells
     flat = cellw * 8 + oct_idx                       # (N,) conflict keys
 
     # current occupant's distance to the same center (inf if empty)
-    safe_cell = torch.clamp(cellw, max=S * W - 1)
+    safe_cell = over(torch.clamp(local, max=S * W - 1))
     was_valid = m.valid[safe_cell, oct_idx]
     d_occ = torch.where(
         was_valid, _sq_norm3(m.pts[safe_cell, oct_idx] - centers), torch.inf)
     # a candidate wins if nearer than the occupant; among candidates,
     # scatter-min, exact ties broken by point index
     d_eff = torch.where(placed & (d_new < d_occ), d_new, torch.inf)
-    best = _scatter_min((S * W + 1) * 8, flat, d_eff, torch.inf)
+    best = _scatter_min(R * 8, flat, d_eff, torch.inf)
     is_winner = placed & torch.isfinite(d_eff) & (d_eff <= best[flat])
-    first = _scatter_min((S * W + 1) * 8, flat,
+    first = _scatter_min(R * 8, flat,
                          torch.where(is_winner, ids, _INT32_MAX), _INT32_MAX)
     is_winner = is_winner & (first[flat] == ids)
 
     # losers write to the overflow cell, which is reset afterwards
-    wcell = torch.where(is_winner, cellw, S * W)
+    wcell = torch.where(is_winner, cellw, over(S * W))
     new_pts = m.pts.clone()
     new_pts[wcell, oct_idx] = pts.to(new_pts.dtype)
-    new_pts[S * W] = 0.0
     new_valid = m.valid.clone()
     new_valid[wcell, oct_idx] = index.scalar(True, torch.bool, dev)
-    new_valid[S * W] = False
-    added = torch.sum(is_winner & ~was_valid, dtype=torch.int32)
+    if batched:
+        new_pts.view(sessions, -1, 8, 3)[:, S * W] = 0.0
+        new_valid.view(sessions, -1, 8)[:, S * W] = False
+        added = torch.sum((is_winner & ~was_valid).reshape(sessions, -1), dim=-1,
+                          dtype=torch.int32)
+    else:
+        new_pts[S * W] = 0.0
+        new_valid[S * W] = False
+        added = torch.sum(is_winner & ~was_valid, dtype=torch.int32)
     return VoxelHashMap(way_keys=way_keys, pts=new_pts, valid=new_valid,
                         num_points=m.num_points + added)
 
@@ -254,27 +329,31 @@ def knn(m: VoxelHashMap, queries: torch.Tensor, cell_size: float, k: int = 5,
     gates are far tighter than either bound (5-NN plane fits gate at 0.2 m,
     `mapOptimization.cpp:406-414`).  Candidates are ordered (neighbor cell,
     slot), and equal distances keep that order."""
-    S, W = m.way_keys.shape
-    Q = queries.shape[0]
+    S, W = m.way_keys.shape[-2:]
+    batch = m.way_keys.dim() - 2
+    lead = queries.shape[:-2]
+    Q = queries.shape[-2]
     if neighborhood == 27:
         base = _voxel_coord(queries, cell_size)      # (Q, 3)
     else:
         assert neighborhood == 8, neighborhood
         base = torch.floor(_cell_units(queries, cell_size) - 0.5).to(torch.int32)
     offs = index.constant(_NEIGH[neighborhood], torch.int32, queries.device)
-    cn = base[:, None, :] + offs[None, :, :]         # (Q, NB, 3)
-    NB = cn.shape[1]
+    cn = base[..., :, None, :] + offs[None, :, :]    # (Q, NB, 3)
+    NB = cn.shape[-2]
     keys = _pack(cn)                                 # (Q, NB)
     sidx = _set_index(keys, S)                       # (Q, NB)
-    has, wayi = _first_true(m.way_keys[sidx] == keys[..., None])
+    has, wayi = _first_true(index.at(m.way_keys, sidx, batch=batch)
+                            == keys[..., None])
     cell = sidx * W + wayi                           # (Q, NB)
     # gather whole (8, 3) cell slabs: one gather of Q*NB slabs
-    cand_pts = m.pts[cell].reshape(Q, NB * 8, 3)
-    cand_ok = (m.valid[cell] & has[..., None]).reshape(Q, NB * 8)
-    d = _sq_norm3(cand_pts - queries[:, None, :])
+    cand_pts = index.at(m.pts, cell, batch=batch).reshape(lead + (Q, NB * 8, 3))
+    cand_ok = (index.at(m.valid, cell, batch=batch) & has[..., None]).reshape(
+        lead + (Q, NB * 8))
+    d = _sq_norm3(cand_pts - queries[..., :, None, :])
     d = torch.where(cand_ok, d, torch.inf)
     neg_d, idx = features.top_k(-d, k)               # smallest distances
-    sel = torch.gather(cand_pts, 1, idx[..., None].expand(Q, k, 3))
+    sel = torch.gather(cand_pts, -2, idx[..., None].expand(lead + (Q, k, 3)))
     sq = -neg_d
     return sel, sq, torch.isfinite(sq)
 
@@ -287,17 +366,19 @@ def evict_far(m: VoxelHashMap, center: torch.Tensor, radius,
     Ways whose cell becomes empty are freed for reuse.
 
     `when` (() bool on the device) makes the eviction conditional without a
-    host read: where it is false the map comes back with equal contents."""
-    S, W = m.way_keys.shape
-    d2 = _sq_norm3(m.pts - center[None, None, :])    # (S*W+1, 8)
+    host read: where it is false the map comes back with equal contents.
+    For B sessions' maps, `center` is (B, 3) and `when` (B,)."""
+    S, W = m.way_keys.shape[-2:]
+    lead = m.way_keys.shape[:-2]
+    d2 = _sq_norm3(m.pts - center[..., None, None, :])   # (S*W+1, 8)
     within = d2 <= radius * radius
     if when is not None:
-        within = within | ~when
+        within = within | ~when[..., None, None]
     keep = m.valid & within
-    removed = torch.sum(m.valid & ~keep, dtype=torch.int32)
-    freed = ~torch.any(keep[: S * W], dim=-1).reshape(S, W)
+    removed = torch.sum((m.valid & ~keep).flatten(-2), dim=-1, dtype=torch.int32)
+    freed = ~torch.any(keep[..., : S * W, :], dim=-1).reshape(lead + (S, W))
     if when is not None:
-        freed = freed & when
+        freed = freed & when[..., None, None]
     return VoxelHashMap(
         way_keys=torch.where(freed, EMPTY_KEY, m.way_keys),
         pts=m.pts,

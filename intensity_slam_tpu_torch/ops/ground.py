@@ -17,6 +17,9 @@ The uniform draws are an ARGUMENT (`u`, (ransac_iters, 3) in [0, 1)), where
 the JAX package takes a `jax.random` key: the two libraries' generators
 give different numbers from one seed, so a caller (and a parity test) hands
 the draws over.  `draw_uniforms` makes them from a `torch.Generator`.
+
+With a leading session axis on every input (draws (B, K, 3), points
+(B, N, 3)), each session fits its own plane from its own draws.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import GroundConfig
+from ..utils import index
 
 
 class GroundResult(NamedTuple):
@@ -46,26 +50,41 @@ def draw_uniforms(gen: torch.Generator, cfg: GroundConfig, device) -> torch.Tens
 def _sample_valid_indices(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Indices drawn uniformly from the True entries of `mask` (with
     replacement), one per entry of `u` in [0, 1): cumsum + searchsorted."""
-    cdf = torch.cumsum(mask.float(), 0)
-    total = cdf[-1]
+    cdf = torch.cumsum(mask.float(), -1)
+    total = cdf[..., -1:, None]
     x = u * torch.clamp(total, min=1.0)
-    idx = torch.searchsorted(cdf, x.reshape(-1), right=True).reshape(u.shape)
-    return torch.clamp(idx, 0, mask.shape[0] - 1)
+    idx = torch.searchsorted(cdf, x.reshape(mask.shape[:-1] + (-1,)),
+                             right=True).reshape(u.shape)
+    return torch.clamp(idx, 0, mask.shape[-1] - 1)
 
 
 def _fit_plane_lsq(xyz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted least-squares plane through points: (4,) [n, d], the
     smallest eigenvector of the weighted covariance, oriented +z (`eigh`
     leaves the sign free)."""
-    wsum = torch.clamp(torch.sum(w), min=1e-6)
-    centroid = torch.sum(xyz * w[:, None], dim=0) / wsum
-    centered = (xyz - centroid) * torch.sqrt(w)[:, None]
-    cov = centered.T @ centered / wsum
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-6)[..., None]
+    centroid = torch.sum(xyz * w[..., None], dim=-2) / wsum
+    centered = (xyz - centroid[..., None, :]) * torch.sqrt(w)[..., None]
+    cov = centered.transpose(-1, -2) @ centered / wsum[..., None]
     _, vecs = torch.linalg.eigh(cov)
-    n = vecs[:, 0]
-    n = n * torch.where(n[2] < 0, -1.0, 1.0)
-    d = -torch.dot(n, centroid)
-    return torch.cat([n, d[None]])
+    n = vecs[..., :, 0]
+    n = n * torch.where(n[..., 2:] < 0, -1.0, 1.0)
+    d = -_dot(n, centroid)
+    return torch.cat([n, d[..., None]], dim=-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last axis (per session when batched)."""
+    if a.dim() == 1:
+        return torch.dot(a, b)
+    return (a[..., None, :] @ b[..., :, None])[..., 0, 0]
+
+
+def _plane_dist(xyz: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
+    """|x . n + d| of every point against `plane` [n, d] (per session)."""
+    if plane.dim() == 1:
+        return torch.abs(xyz @ plane[:3] + plane[3])
+    return torch.abs((xyz @ plane[..., :3, None])[..., 0] + plane[..., 3:])
 
 
 def extract_ground(
@@ -75,49 +94,54 @@ def extract_ground(
     cfg: GroundConfig,
 ) -> GroundResult:
     """Args: u (ransac_iters, 3) uniforms in [0, 1), xyz (N, 3) flat scan
-    points, valid (N,) bool."""
-    z = xyz[:, 2]
+    points, valid (N,) bool; or all three with a leading session axis."""
+    batch = xyz.dim() - 2
+    z = xyz[..., 2]
     candidate = valid & (z >= cfg.z_min) & (z <= cfg.z_max)  # height band, :51
-    num_candidates = torch.sum(candidate)
+    num_candidates = torch.sum(candidate, dim=-1)
 
     # hypothesis generation: K triples from the candidate set
     idx = _sample_valid_indices(u, candidate)
-    p0, p1, p2 = xyz[idx[:, 0]], xyz[idx[:, 1]], xyz[idx[:, 2]]
+    p0, p1, p2 = (index.at(xyz, idx[..., j], batch=batch) for j in range(3))
     n = torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
     n_norm = torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
     n = n / torch.clamp(n_norm, min=1e-9)
-    n = n * torch.where(n[:, 2:3] < 0, -1.0, 1.0)  # orient +z
+    n = n * torch.where(n[..., 2:3] < 0, -1.0, 1.0)  # orient +z
     d = -torch.sum(n * p0, dim=-1)  # (K,)
 
     # z-axis prior: angle(n, z) <= eps (SACMODEL_PERPENDICULAR_PLANE, :64-65)
     cos_eps = math.cos(math.radians(cfg.axis_max_angle_deg))
-    axis_ok = n[:, 2] >= cos_eps
-    degenerate = n_norm[:, 0] < 1e-9
+    axis_ok = n[..., 2] >= cos_eps
+    degenerate = n_norm[..., 0] < 1e-9
 
     # score: |x.n + d| < tau over candidates, all K at once
-    dist = torch.abs(xyz @ n.T + d[None, :])  # (N, K)
-    inl = (dist < cfg.dist_threshold) & candidate[:, None]
-    counts = torch.where(axis_ok & ~degenerate, torch.sum(inl, dim=0), -1)
-    best = torch.argmax(counts)
-    best_count = torch.gather(counts, 0, best[None])[0]
+    dist = torch.abs(xyz @ n.transpose(-1, -2) + d[..., None, :])  # (N, K)
+    inl = (dist < cfg.dist_threshold) & candidate[..., None]
+    counts = torch.where(axis_ok & ~degenerate, torch.sum(inl, dim=-2), -1)
+    best = torch.argmax(counts, dim=-1)
+    best_count = torch.gather(counts, -1, best[..., None])[..., 0]
 
     # refine on the best hypothesis' inliers (PCL optimizeCoefficients),
     # re-inlier -> refit over progressively tighter bands: the wide first
     # band captures the whole plane extent, the last matches the 0.01
     # threshold
-    plane = torch.cat([torch.index_select(n, 0, best[None])[0],
-                       torch.gather(d, 0, best[None])])
+    if batch:
+        plane = torch.cat([index.at(n, best, batch=1),
+                           torch.gather(d, -1, best[..., None])], dim=-1)
+    else:
+        plane = torch.cat([torch.index_select(n, 0, best[None])[0],
+                           torch.gather(d, 0, best[None])])
     for scale in (4.0, 2.0, 1.0):
         tau = scale * cfg.dist_threshold
-        dist_p = torch.abs(xyz @ plane[:3] + plane[3])
+        dist_p = _plane_dist(xyz, plane)
         w = ((dist_p < tau) & candidate).to(xyz.dtype)
         new = _fit_plane_lsq(xyz, w)
-        plane = torch.where(new[2] >= cos_eps, new, plane)
+        plane = torch.where(new[..., 2:3] >= cos_eps, new, plane)
 
     # final keep band: within 0.03 m of plane and z < 0 (:86)
-    final_dist = torch.abs(xyz @ plane[:3] + plane[3])
+    final_dist = _plane_dist(xyz, plane)
     ground_mask = valid & (final_dist < cfg.keep_threshold) & (z < 0.0)
 
     ok = (num_candidates >= 16) & (best_count > 0)
-    ground_mask = ground_mask & ok
+    ground_mask = ground_mask & ok[..., None]
     return GroundResult(plane, ground_mask, best_count.to(torch.int32), ok)

@@ -17,7 +17,8 @@ from ..config import SensorConfig
 
 
 class ScanImage(NamedTuple):
-    """Projected scan: all fields (H, W[, C]) fixed-shape tensors."""
+    """Projected scan: all fields (..., H, W[, C]) fixed-shape tensors (the
+    leading dims, when present, are a batch of sessions)."""
 
     intensity: torch.Tensor  # (H, W) float32, clamped to [0, 255]
     range: torch.Tensor      # (H, W) float32 metres (0 where invalid)
@@ -31,13 +32,15 @@ def project_organized(
     """Project an organized row-major cloud to image tensors.
 
     Args:
-      xyz: (H*W, 3) or (H, W, 3) point coordinates, row-major by ring
-        (`cloud_track[row*W + col]`, `intensity_feature_tracker.cpp:1082`).
-      intensity: matching (H*W,) or (H, W) per-point intensity.
+      xyz: (..., H*W, 3) or (..., H, W, 3) point coordinates, row-major by
+        ring (`cloud_track[row*W + col]`, `intensity_feature_tracker.cpp:1082`);
+        leading dims are a batch of sessions.
+      intensity: matching (..., H*W) or (..., H, W) per-point intensity.
     """
     H, W = cfg.image_height, cfg.image_width
-    xyz = xyz.reshape(H, W, 3).float()
-    inten = intensity.reshape(H, W).float()
+    lead = xyz.shape[:-2] if xyz.shape[-2] == H * W else xyz.shape[:-3]
+    xyz = xyz.reshape(lead + (H, W, 3)).float()
+    inten = intensity.reshape(lead + (H, W)).float()
     rng = torch.sqrt(torch.sum(xyz * xyz, dim=-1))
     valid = rng >= cfg.min_range  # image_handler.h_ouster:126 zeroes closer points
     xyz = torch.where(valid[..., None], xyz, 0.0)

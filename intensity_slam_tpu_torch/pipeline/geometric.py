@@ -21,6 +21,9 @@ planes — never as the (Q, N, 3) difference tensor (71 MB for the edges).
 The searches are plain `jnp` in the JAX package, outside any Pallas kernel,
 so they are torch ops here.  Both residuals carry analytic Jacobians
 (`ops.solver`), so the solve makes no forward-mode passes.
+
+Every function also takes a leading session axis on the state, the feature
+clouds and the pose (B sessions, each solved as it would be alone).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import solver
 from ..ops.curvature import FeatureClouds
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 
 
@@ -48,32 +51,34 @@ class GeometricState(NamedTuple):
 
 
 def init_state(cfg: SlamConfig, num_less_sharp: int, num_less_flat: int,
-               device="cuda") -> GeometricState:
+               device="cuda", batch: tuple = ()) -> GeometricState:
+    """The first frame's state; `batch=(B,)` gives B sessions' states."""
     f32 = dict(dtype=torch.float32, device=device)
     b = dict(dtype=torch.bool, device=device)
+    lead = tuple(batch)
     return GeometricState(
-        last_less_sharp=torch.zeros((num_less_sharp, 3), **f32),
-        last_less_sharp_mask=torch.zeros((num_less_sharp,), **b),
-        last_less_sharp_ring=torch.zeros((num_less_sharp,), dtype=torch.int32,
+        last_less_sharp=torch.zeros(lead + (num_less_sharp, 3), **f32),
+        last_less_sharp_mask=torch.zeros(lead + (num_less_sharp,), **b),
+        last_less_sharp_ring=torch.zeros(lead + (num_less_sharp,), dtype=torch.int32,
                                          device=device),
-        last_less_flat=torch.zeros((num_less_flat, 3), **f32),
-        last_less_flat_mask=torch.zeros((num_less_flat,), **b),
-        last_delta=Pose.identity(device=device),
-        has_prev=torch.zeros((), **b),
+        last_less_flat=torch.zeros(lead + (num_less_flat, 3), **f32),
+        last_less_flat_mask=torch.zeros(lead + (num_less_flat,), **b),
+        last_delta=Pose.identity(lead, device=device),
+        has_prev=torch.zeros(lead, **b),
     )
 
 
 def _sq_dists(q: torch.Tensor, last: torch.Tensor,
               last_mask: torch.Tensor) -> torch.Tensor:
-    """(Q, N) squared distances, +inf at masked columns; summed x, y, z in
-    turn so that no (Q, N, 3) tensor is built."""
-    dx = q[:, None, 0] - last[None, :, 0]
+    """(..., Q, N) squared distances, +inf at masked columns; summed x, y, z
+    in turn so that no (Q, N, 3) tensor is built."""
+    dx = q[..., :, None, 0] - last[..., None, :, 0]
     d = dx * dx
-    dy = q[:, None, 1] - last[None, :, 1]
+    dy = q[..., :, None, 1] - last[..., None, :, 1]
     d = d + dy * dy
-    dz = q[:, None, 2] - last[None, :, 2]
+    dz = q[..., :, None, 2] - last[..., None, :, 2]
     d = d + dz * dz
-    return torch.where(last_mask[None, :], d, torch.inf)
+    return torch.where(last_mask[..., None, :], d, torch.inf)
 
 
 def _edge_correspondences(
@@ -84,17 +89,18 @@ def _edge_correspondences(
     """For each query: nearest previous point j, plus nearest l on a
     different-but-nearby ring (`laserOdometry.cpp:446-563`).  `torch.argmin`
     takes the first of equal minima, as `jnp.argmin` does."""
+    batch = q.dim() - 2
     d = _sq_dists(q, last, last_mask)
-    j = torch.argmin(d, dim=1)
-    dj = torch.gather(d, 1, j[:, None])[:, 0]
-    ring_j = last_ring[j]
-    ring_diff = torch.abs(last_ring[None, :] - ring_j[:, None])
+    j = torch.argmin(d, dim=-1)
+    dj = torch.gather(d, -1, j[..., None])[..., 0]
+    ring_j = index.at(last_ring, j, batch=batch)
+    ring_diff = torch.abs(last_ring[..., None, :] - ring_j[..., :, None])
     l_elig = (ring_diff >= 1) & (ring_diff <= nearby_scan)
     dl_m = torch.where(l_elig, d, torch.inf)
-    l = torch.argmin(dl_m, dim=1)
-    dl = torch.gather(dl_m, 1, l[:, None])[:, 0]
+    l = torch.argmin(dl_m, dim=-1)
+    dl = torch.gather(dl_m, -1, l[..., None])[..., 0]
     ok = q_mask & (dj < dist_sq_threshold) & (dl < dist_sq_threshold)
-    return last[j], last[l], ok
+    return index.at(last, j, batch=batch), index.at(last, l, batch=batch), ok
 
 
 def _plane_correspondences(
@@ -106,18 +112,19 @@ def _plane_correspondences(
     three nearest come from three passes of first-minimum argmin, each
     masking the column it took: the order `jax.lax.top_k(-d, 3)` gives
     (descending, equal values in index order) without sorting every row."""
+    batch = q.dim() - 2
     d = _sq_dists(q, last, last_mask)
     idx, dists = [], []
     for _ in range(3):
-        i = torch.argmin(d, dim=1)
-        dists.append(torch.gather(d, 1, i[:, None])[:, 0])
+        i = torch.argmin(d, dim=-1)
+        dists.append(torch.gather(d, -1, i[..., None])[..., 0])
         idx.append(i)
-        d = d.scatter(1, i[:, None], torch.inf)
+        d = d.scatter(-1, i[..., None], torch.inf)
     # a row with fewer than three finite entries repeats masked columns in
     # another order than top_k would; its distances are +inf either way, so
     # the gate below rejects it
     dists = torch.stack(dists, dim=-1)                   # (Q, 3)
-    a, b, c = last[idx[0]], last[idx[1]], last[idx[2]]
+    a, b, c = (index.at(last, i, batch=batch) for i in idx)
     cr = torch.linalg.cross(b - a, c - a, dim=-1)
     area2 = torch.sum(cr * cr, dim=-1)
     ok = q_mask & torch.all(dists < dist_sq_threshold, dim=-1) & (area2 > 1e-6)
@@ -154,7 +161,7 @@ def geometric_delta(
             delta, fn, iters=gc.odom_gn_iters,
             robust="huber", robust_scale=0.1,
         )
-        enough = (torch.sum(e_ok) + torch.sum(p_ok)) >= 10
+        enough = (torch.sum(e_ok, dim=-1) + torch.sum(p_ok, dim=-1)) >= 10
         delta = se3.pose_where(state.has_prev & enough, res.pose, delta)
     return delta
 
@@ -170,6 +177,6 @@ def update_state(state: GeometricState, fc: FeatureClouds,
         last_less_flat=fc.less_flat,
         last_less_flat_mask=fc.less_flat_mask,
         last_delta=delta,
-        has_prev=torch.ones((), dtype=torch.bool,
+        has_prev=torch.ones(fc.less_sharp.shape[:-2], dtype=torch.bool,
                             device=fc.less_sharp.device),
     )

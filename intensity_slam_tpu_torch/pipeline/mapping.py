@@ -29,6 +29,11 @@ read of `torch.linalg.eigh` in `fit_lines`; nothing else.  The JAX package's
 here: `grid_hash.evict_far(..., when=over)` runs every frame and keeps
 everything unless the count is over its threshold, so the count never comes
 to the host.
+
+`mapping_step` also advances B sessions at once: a state from
+`init_state(cfg, batch=(B,))` and inputs with a leading B.  The host reads
+stay one per site for all B (one per solver iteration, one per batched
+`eigh`).
 """
 
 from __future__ import annotations
@@ -77,21 +82,23 @@ class MappingOutput(NamedTuple):
     corner_ds_mask: torch.Tensor  # (Pc,)
 
 
-def init_state(cfg: SlamConfig, device="cuda") -> MappingState:
+def init_state(cfg: SlamConfig, device="cuda", batch: tuple = ()) -> MappingState:
+    """The first frame's state; `batch=(B,)` gives B sessions' states."""
     mc = cfg.mapping
     num_sets = mc.map_capacity // (4 * 8)
     W, F = mc.sliding_window_size, cfg.feature.num_features
+    b = tuple(batch)
     return MappingState(
-        ground_map=grid_hash.empty(num_sets, 4, device=device),
-        corner_map=grid_hash.empty(num_sets, 4, device=device),
-        T_map_odom=Pose.identity(device=device),
-        initialized=torch.zeros((), dtype=torch.bool, device=device),
-        frame_idx=torch.zeros((), dtype=torch.int32, device=device),
-        win_desc=torch.zeros((W, F, 8), dtype=torch.int32, device=device),
-        win_xyz=torch.zeros((W, F, 3), dtype=torch.float32, device=device),
-        win_valid=torch.zeros((W, F), dtype=torch.bool, device=device),
-        win_pose=Pose.identity((W,), device=device),
-        win_count=torch.zeros((), dtype=torch.int32, device=device),
+        ground_map=grid_hash.empty(num_sets, 4, device=device, batch=b),
+        corner_map=grid_hash.empty(num_sets, 4, device=device, batch=b),
+        T_map_odom=Pose.identity(b, device=device),
+        initialized=torch.zeros(b, dtype=torch.bool, device=device),
+        frame_idx=torch.zeros(b, dtype=torch.int32, device=device),
+        win_desc=torch.zeros(b + (W, F, 8), dtype=torch.int32, device=device),
+        win_xyz=torch.zeros(b + (W, F, 3), dtype=torch.float32, device=device),
+        win_valid=torch.zeros(b + (W, F), dtype=torch.bool, device=device),
+        win_pose=Pose.identity(b + (W,), device=device),
+        win_count=torch.zeros(b, dtype=torch.int32, device=device),
     )
 
 
@@ -113,29 +120,33 @@ def _window_residuals(
     mc, fc = cfg.mapping, cfg.feature
     Wn = mc.sliding_window_size
     dev = feats.desc.device
+    lead = state.win_count.shape
+    batch = len(lead)
     fval = feats.valid & feats.xyz_valid
-    ms = [feat_ops.match(feats.desc, fval, state.win_desc[w], state.win_valid[w],
-                         mc.window_keep_frac, fc.max_hamming) for w in range(Wn)]
-    stack = lambda f: torch.stack([getattr(m, f) for m in ms])
+    ms = [feat_ops.match(feats.desc, fval, state.win_desc[..., w, :, :],
+                         state.win_valid[..., w, :], mc.window_keep_frac,
+                         fc.max_hamming) for w in range(Wn)]
+    stack = lambda f: torch.stack([getattr(m, f) for m in ms], dim=batch)
     # frame gates (`:308` matches > 100, `:330` good > 50) + live slots
-    slot_live = torch.arange(Wn, device=dev) < torch.clamp(state.win_count, max=Wn)
+    slot_live = (torch.arange(Wn, device=dev)
+                 < torch.clamp(state.win_count, max=Wn)[..., None])
     frame_ok = (
         slot_live
         & (stack("num_mutual") > mc.window_min_matches)
         & (stack("num_good") > mc.window_min_good)
     )
-    src = feats.xyz[stack("src_idx").long()]                 # (W, F, 3) sensor
-    dst = torch.gather(state.win_xyz, 1,
-                       stack("dst_idx").long()[..., None].expand(-1, -1, 3))
+    src = index.at(feats.xyz, stack("src_idx").long(), batch=batch)  # (W, F, 3)
+    dst_i = stack("dst_idx").long()[..., None]
+    dst = torch.gather(state.win_xyz, -2, dst_i.expand(dst_i.shape[:-1] + (3,)))
     dst_map = se3.transform_points(state.win_pose, dst)
     # map-frame pair distance gate at the prior pose (`:345` < 0.3 m)
-    src_map = se3.transform_points(prior, src.reshape(-1, 3)).reshape(src.shape)
+    src_map = se3.transform_points(prior, src.reshape(lead + (-1, 3))).reshape(src.shape)
     near = _norm(src_map - dst_map) < mc.window_dist_gate
-    mask = (stack("valid") & near & frame_ok[:, None]).float()
+    mask = (stack("valid") & near & frame_ok[..., None]).float()
     # block weight = squared sqrt-information (see config.window_sqrt_info)
     w = mask * mc.window_sqrt_info**2
-    return (src.reshape(-1, 3), dst_map.reshape(-1, 3), w.reshape(-1),
-            torch.sum(mask).to(torch.int32))
+    return (src.reshape(lead + (-1, 3)), dst_map.reshape(lead + (-1, 3)),
+            w.reshape(lead + (-1,)), torch.sum(mask.flatten(-2), dim=-1).to(torch.int32))
 
 
 def _pose_prior(prior: Pose, sqrt_info: torch.Tensor) -> solver.ResidualFn:
@@ -152,16 +163,18 @@ def _pose_prior(prior: Pose, sqrt_info: torch.Tensor) -> solver.ResidualFn:
     overhead made this one block the largest cost of the whole step
     (PERF.md)."""
     fn = solver.pose_prior(prior, sqrt_info)
-    inv_prior = se3.inverse(Pose(prior.q.double(), prior.t.double()))
+    inv_prior = se3.pose_map(lambda a: a[..., None, :],
+                             se3.inverse(Pose(prior.q.double(), prior.t.double())))
     h = 1e-6
 
     def jacobian(p: Pose) -> torch.Tensor:
         eye = torch.eye(6, dtype=torch.float64, device=p.t.device) * h
-        moved = se3.retract(Pose(p.q.double(), p.t.double()),
+        moved = se3.retract(se3.pose_map(lambda a: a.double()[..., None, :], p),
                             torch.cat([eye, -eye]))
         r = se3.se3_log(se3.compose(inv_prior, moved))           # (12, 6)
-        J = ((r[:6] - r[6:]) / (2.0 * h)).T.to(p.t.dtype)          # (6, 6)
-        return (sqrt_info[:, None] * J)[None]
+        J = ((r[..., :6, :] - r[..., 6:, :]) / (2.0 * h)).transpose(-1, -2).to(
+            p.t.dtype)                                           # (6, 6)
+        return (sqrt_info[..., :, None] * J)[..., None, :, :]
 
     fn.jacobian = jacobian
     return fn
@@ -191,13 +204,13 @@ def fit_lines(neigh: torch.Tensor, nvalid: torch.Tensor, eig_ratio: float = 3.0)
     free, so a and b may come out swapped against another implementation;
     the point-to-line residual does not change under the swap.  On the card
     `eigh` reads its status back: one host read."""
-    k = neigh.shape[1]
-    center = torch.mean(neigh, dim=1)                      # (Q, 3)
-    d = neigh - center[:, None, :]
-    cov = torch.einsum("qki,qkj->qij", d, d) / k
+    k = neigh.shape[-2]
+    center = torch.mean(neigh, dim=-2)                     # (Q, 3)
+    d = neigh - center[..., None, :]
+    cov = torch.einsum("...qki,...qkj->...qij", d, d) / k
     evals, evecs = torch.linalg.eigh(cov)                  # ascending
-    is_line = evals[:, 2] > eig_ratio * evals[:, 1]
-    direction = evecs[:, :, 2]
+    is_line = evals[..., 2] > eig_ratio * evals[..., 1]
+    direction = evecs[..., :, 2]
     a = center + 0.1 * direction
     b = center - 0.1 * direction
     ok = is_line & torch.all(nvalid, dim=-1)
@@ -210,19 +223,19 @@ def _fit_planes(neigh: torch.Tensor, nvalid: torch.Tensor, threshold: float):
     Solves X n = -1 per query via 3x3 normal equations; returns unit normal
     (Q, 3), offset d (Q,), and validity (all k neighbors within `threshold`
     of the fitted plane, and all k present)."""
-    ones = -torch.ones(neigh.shape[:2], dtype=neigh.dtype, device=neigh.device)
-    XtX = torch.einsum("qki,qkj->qij", neigh, neigh)
-    Xt1 = torch.einsum("qki,qk->qi", neigh, ones)
+    ones = -torch.ones(neigh.shape[:-1], dtype=neigh.dtype, device=neigh.device)
+    XtX = torch.einsum("...qki,...qkj->...qij", neigh, neigh)
+    Xt1 = torch.einsum("...qki,...qk->...qi", neigh, ones)
     # regularize to keep the solve finite for degenerate neighborhoods;
     # validity gating rejects those fits anyway
     XtX = XtX + 1e-8 * torch.eye(3, dtype=neigh.dtype, device=neigh.device)
     n_raw = _solve3x3(XtX, Xt1)          # closed form: 2048 tiny systems
     norm = _norm(n_raw)
     good_norm = norm > 1e-6
-    n = n_raw / torch.clamp(norm, min=1e-6)[:, None]
+    n = n_raw / torch.clamp(norm, min=1e-6)[..., None]
     d = 1.0 / torch.clamp(norm, min=1e-6)
     # plane validity: every neighbor within threshold (reference `:406-414`)
-    dist = torch.abs(torch.einsum("qki,qi->qk", neigh, n) + d[:, None])
+    dist = torch.abs(torch.einsum("...qki,...qi->...qk", neigh, n) + d[..., None])
     all_near = torch.all(nvalid & (dist <= threshold), dim=-1)
     have_all = torch.all(nvalid, dim=-1)
     return n, d, good_norm & all_near & have_all
@@ -246,6 +259,7 @@ def mapping_step(
 ) -> tuple[MappingState, MappingOutput]:
     mc = cfg.mapping
     dev = ground_pts.device
+    lead = state.frame_idx.shape      # () alone, (B,) for B sessions
     ground_cell = 2.0 * mc.ground_voxel   # octant resolution = ground_voxel
     corner_cell = 2.0 * mc.corner_voxel
 
@@ -257,8 +271,8 @@ def mapping_step(
     # `downsample_prefilter` masked points, and the raw ground mask alone can
     # exceed it; surf points at the tail would never survive.
     if surf_pts is not None:
-        ground_pts = torch.cat([surf_pts, ground_pts])
-        ground_mask = torch.cat([surf_mask, ground_mask])
+        ground_pts = torch.cat([surf_pts, ground_pts], dim=-2)
+        ground_mask = torch.cat([surf_mask, ground_mask], dim=-1)
     q_pts, q_mask = voxel_downsample(
         ground_pts, ground_mask, mc.ground_voxel, mc.max_query_points,
         prefilter=mc.downsample_prefilter,
@@ -272,7 +286,7 @@ def mapping_step(
     )
     n, d, plane_ok = _fit_planes(neigh, nvalid, mc.plane_valid_threshold)
     w = (q_mask & plane_ok).float()
-    num_res = torch.sum(w).to(torch.int32)
+    num_res = torch.sum(w, dim=-1).to(torch.int32)
 
     # corner point-to-line residuals (config.use_corner_residuals): the
     # x/y/yaw observations the reference's active core lacks
@@ -287,9 +301,9 @@ def mapping_step(
         )
         la, lb, line_ok = fit_lines(cn, cnv, mc.corner_eig_ratio)
         w_c = (c_mask & line_ok).float() * mc.corner_sqrt_info ** 2
-        num_corner = torch.sum(c_mask & line_ok, dtype=torch.int32)
+        num_corner = torch.sum(c_mask & line_ok, dim=-1, dtype=torch.int32)
     else:
-        num_corner = torch.zeros((), dtype=torch.int32, device=dev)
+        num_corner = torch.zeros(lead, dtype=torch.int32, device=dev)
 
     # robust GN solve from the prior (`:432-442`), anchored by a per-axis
     # prior factor: the ground-plane core observes z/roll/pitch; with enough
@@ -299,22 +313,23 @@ def mapping_step(
     corner_enough = num_corner >= mc.min_corner_residuals
     # plane-normal diversity: the surf planes observe x/y (and jointly yaw)
     # only when enough plane normals have lateral components in BOTH axes
-    nx2 = torch.sum(w * n[:, 0] ** 2)
-    ny2 = torch.sum(w * n[:, 1] ** 2)
+    nx2 = torch.sum(w * n[..., 0] ** 2, dim=-1)
+    ny2 = torch.sum(w * n[..., 1] ** 2, dim=-1)
     plane_xy_obs = (nx2 >= 32.0) & (ny2 >= 32.0)
     obs_enough = corner_enough | plane_xy_obs
     prior_sqrt_info = torch.where(
-        obs_enough,
+        obs_enough[..., None],
         index.constant(mc.prior_sqrt_info_corner, device=dev),
         index.constant(mc.prior_sqrt_info, device=dev),
     )
     residual_sets = [
-        (solver.point_to_plane_nd(q_pts, n, d, w * enough.float()), 1),
+        (solver.point_to_plane_nd(q_pts, n, d, w * enough.float()[..., None]), 1),
         (_pose_prior(prior, prior_sqrt_info), 6),
     ]
     if mc.use_corner_residuals:
         residual_sets.append(
-            (solver.point_to_line(c_pts, la, lb, w_c * corner_enough.float()), 3)
+            (solver.point_to_line(c_pts, la, lb,
+                                  w_c * corner_enough.float()[..., None]), 3)
         )
     # sliding-window visual BA residuals (`:295-361`); the shipped window
     # size 0 costs nothing
@@ -329,7 +344,7 @@ def mapping_step(
         )
         residual_sets.append((solver.point_to_point(ba_src, ba_dst, ba_w), 3))
     else:
-        num_window = torch.zeros((), dtype=torch.int32, device=dev)
+        num_window = torch.zeros(lead, dtype=torch.int32, device=dev)
     res = solver.solve_pose(
         prior,
         solver.concat_residuals(*residual_sets),
@@ -354,7 +369,7 @@ def mapping_step(
 
     # capacity policy: near-full maps evict points far from the sensor
     # (rolling-cube-map recentering, `laserMapping.cpp:330-565`)
-    S, W = ground_map.way_keys.shape
+    S, W = ground_map.way_keys.shape[-2:]
     thresh = int(mc.map_evict_frac * (S * W * 8))
     ground_map = grid_hash.evict_far(
         ground_map, pose.t, mc.map_keep_radius,
@@ -383,7 +398,7 @@ def mapping_step(
         ground_map=ground_map,
         corner_map=corner_map,
         T_map_odom=T_map_odom,
-        initialized=state.initialized | torch.any(ground_mask),
+        initialized=state.initialized | torch.any(ground_mask, dim=-1),
         frame_idx=state.frame_idx + 1,
         win_desc=win_desc,
         win_xyz=win_xyz,

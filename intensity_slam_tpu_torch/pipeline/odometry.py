@@ -13,6 +13,11 @@ behavioral contract of `feature_tracker::detectfeatures`
   bad -> T_s2s = I and the skip flag raises (`:722-730`)
 - pose integration T_s2m *= T_s2s (`:817-877`)
 - keyframe gate: first frame, or (dt > 0.3 s AND dist > 0.3 m) (`:741-815`)
+
+`odometry_step` also advances B independent streams in one launch sequence
+(the counterpart of `__graft_entry__.py`'s vmapped dp-streams): a state from
+`init_state(cfg, batch=(B,))` and a (B, H, W) scan give per-session outputs
+with a leading B, each what that stream would give alone.
 """
 
 from __future__ import annotations
@@ -50,18 +55,20 @@ class OdometryOutput(NamedTuple):
     features: F.Features           # current-frame features (for keyframe store)
 
 
-def init_state(cfg: SlamConfig, device="cuda") -> OdometryState:
+def init_state(cfg: SlamConfig, device="cuda", batch: tuple = ()) -> OdometryState:
+    """The first frame's state; `batch=(B,)` gives B sessions' states."""
     K = cfg.feature.num_features
+    b = tuple(batch)
     f32 = dict(dtype=torch.float32, device=device)
     return OdometryState(
-        pose=Pose.identity(device=device),
-        prev_desc=torch.zeros((K, 8), dtype=torch.int32, device=device),
-        prev_xyz=torch.zeros((K, 3), **f32),
-        prev_xyz_valid=torch.zeros((K,), dtype=torch.bool, device=device),
-        has_prev=torch.tensor(False, device=device),
-        last_kf_time=torch.tensor(-1e9, **f32),
-        last_kf_pos=torch.zeros(3, **f32),
-        frame_idx=torch.tensor(0, dtype=torch.int32, device=device),
+        pose=Pose.identity(b, device=device),
+        prev_desc=torch.zeros(b + (K, 8), dtype=torch.int32, device=device),
+        prev_xyz=torch.zeros(b + (K, 3), **f32),
+        prev_xyz_valid=torch.zeros(b + (K,), dtype=torch.bool, device=device),
+        has_prev=torch.zeros(b, dtype=torch.bool, device=device),
+        last_kf_time=torch.full(b, -1e9, **f32),
+        last_kf_pos=torch.zeros(b + (3,), **f32),
+        frame_idx=torch.zeros(b, dtype=torch.int32, device=device),
     )
 
 
@@ -74,6 +81,8 @@ def odometry_step(
 ) -> tuple[OdometryState, OdometryOutput]:
     fc, oc = cfg.feature, cfg.odometry
     dev = state.prev_xyz.device
+    lead = state.has_prev.shape       # () alone, (B,) for B sessions
+    batch = len(lead)
     timestamp = index.as_scalar(timestamp, torch.float32, dev)
     feats = F.extract(scan, detect_mask, fc)
 
@@ -85,11 +94,11 @@ def odometry_step(
         fc.min_good_matches, fc.max_hamming,
     )
     src_i, dst_i = m.src_idx.long(), m.dst_idx.long()
-    src = feats.xyz[src_i]
-    dst = state.prev_xyz[dst_i]
-    w = (m.valid & feats.xyz_valid[src_i]
-         & state.prev_xyz_valid[dst_i]).float()
-    num_good = torch.sum(w).to(torch.int32)
+    src = index.at(feats.xyz, src_i, batch=batch)
+    dst = index.at(state.prev_xyz, dst_i, batch=batch)
+    w = (m.valid & index.at(feats.xyz_valid, src_i, batch=batch)
+         & index.at(state.prev_xyz_valid, dst_i, batch=batch)).float()
+    num_good = torch.sum(w, dim=-1).to(torch.int32)
 
     # good-frame gate (`:693`): prev exists, good >= 4, good != all-mutual
     pre_good = (
@@ -99,8 +108,8 @@ def odometry_step(
     )
 
     res = solver.solve_pose(
-        Pose.identity(device=dev),
-        solver.point_to_point(src, dst, w * state.has_prev.float()),
+        Pose.identity(lead, device=dev),
+        solver.point_to_point(src, dst, w * state.has_prev.float()[..., None]),
         iters=oc.gn_iters,
         robust="huber",
         robust_scale=oc.huber_delta,
@@ -109,7 +118,7 @@ def odometry_step(
     # degeneracy gate: below the eigenvalue threshold some pose direction is
     # unobserved and the frame counts as skipped
     good_frame = pre_good & (res.min_hessian_eig >= oc.min_hessian_eig)
-    delta = se3.pose_where(good_frame, res.pose, Pose.identity(device=dev))
+    delta = se3.pose_where(good_frame, res.pose, Pose.identity(lead, device=dev))
     skip = ~good_frame
 
     new_pose = se3.compose(state.pose, delta)
@@ -117,7 +126,7 @@ def odometry_step(
     # keyframe gate (`:741-815`)
     dt = timestamp - state.last_kf_time
     d = new_pose.t - state.last_kf_pos
-    dist = torch.sqrt(torch.sum(d * d))
+    dist = torch.sqrt(torch.sum(d * d, dim=-1))
     is_first = state.frame_idx == 0
     is_kf = is_first | (
         (dt > oc.keyframe_time_interval) & (dist > oc.keyframe_distance_interval)
@@ -128,9 +137,9 @@ def odometry_step(
         prev_desc=feats.desc,
         prev_xyz=feats.xyz,
         prev_xyz_valid=feats.xyz_valid,
-        has_prev=torch.ones((), dtype=torch.bool, device=dev),
+        has_prev=torch.ones(lead, dtype=torch.bool, device=dev),
         last_kf_time=torch.where(is_kf, timestamp, state.last_kf_time),
-        last_kf_pos=torch.where(is_kf, new_pose.t, state.last_kf_pos),
+        last_kf_pos=torch.where(is_kf[..., None], new_pose.t, state.last_kf_pos),
         frame_idx=state.frame_idx + 1,
     )
     out = OdometryOutput(

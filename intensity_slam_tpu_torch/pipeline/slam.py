@@ -20,6 +20,16 @@ state carries a `torch.Generator`; a caller may hand the draws in instead
 (`ground_u`).  The JAX package's `lax.cond` on `skip & has_prev` is a host
 branch here: `skip`, `has_prev` and `is_keyframe` come to the host in ONE
 read per frame, and `SlamOutput.host` holds them for the caller.
+
+`slam_step_batched` advances B independent sessions (`init_batched_state`)
+one frame in one launch sequence, session by session what `jax.vmap` of the
+JAX step gives: every op runs over a leading session axis, the host reads
+stay one per site for all B (the flags as one (3, B) read, one loop test per
+solver iteration, one status read per batched `eigh`), and the geometric
+fallback runs on the sub-batch of sessions whose flags say `skip &
+has_prev` (where `jax.vmap` turns the `lax.cond` into a select over all of
+them: the same result).  Session b's RANSAC draws come from its own
+generator, seeded `seeds[b]`: what an unbatched state of that seed draws.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import curvature, ground, projection
-from ..utils import se3
+from ..utils import index, se3
 from ..utils.se3 import Pose
 from . import geometric, mapping, odometry
 
@@ -40,7 +50,8 @@ class SlamState(NamedTuple):
     geo: geometric.GeometricState
     mapping: mapping.MappingState
     merged_pose: Pose           # mux-integrated odometry (odom frame)
-    gen: torch.Generator        # source of the ground RANSAC's draws
+    gen: torch.Generator        # source of the ground RANSAC's draws (a
+    # tuple of B generators, one a session, in a batched state)
     last_delta: Pose            # VELOCITY estimate: EMA (0.5 mix) of the
     # per-frame mux deltas, the constant-velocity prediction for motion
     # undistortion (sensor.undistort).  An EMA and not the raw previous
@@ -76,23 +87,38 @@ class SlamOutput(NamedTuple):
     ground_ds_mask: torch.Tensor  # (Pg,)
     corner_ds: torch.Tensor       # (Pc, 3)
     corner_ds_mask: torch.Tensor  # (Pc,)
-    host: HostFlags
+    host: HostFlags             # a list of B HostFlags from the batched step
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def init_state(cfg: SlamConfig, seed: int = 0, device="cuda") -> SlamState:
+    return _init(cfg, _generator(seed, torch.device(device)), torch.device(device), ())
+
+
+def init_batched_state(cfg: SlamConfig, seeds, device="cuda") -> SlamState:
+    """B sessions' first-frame states, session b's generator seeded
+    `seeds[b]` (so it draws what `init_state(cfg, seeds[b])` would)."""
+    device = torch.device(device)
+    gens = tuple(_generator(int(sd), device) for sd in seeds)
+    return _init(cfg, gens, device, (len(gens),))
+
+
+def _init(cfg: SlamConfig, gen, device, batch: tuple) -> SlamState:
     gc, sc = cfg.geometric, cfg.sensor
     num_less_sharp = sc.image_height * gc.num_segments * gc.less_sharp_per_segment
-    device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
     return SlamState(
-        odo=odometry.init_state(cfg, device=device),
+        odo=odometry.init_state(cfg, device=device, batch=batch),
         geo=geometric.init_state(cfg, num_less_sharp, gc.max_surf_points,
-                                 device=device),
-        mapping=mapping.init_state(cfg, device=device),
-        merged_pose=Pose.identity(device=device),
+                                 device=device, batch=batch),
+        mapping=mapping.init_state(cfg, device=device, batch=batch),
+        merged_pose=Pose.identity(batch, device=device),
         gen=gen,
-        last_delta=Pose.identity(device=device),
+        last_delta=Pose.identity(batch, device=device),
     )
 
 
@@ -101,14 +127,15 @@ def undistort_scan(xyz: torch.Tensor, delta: Pose, cfg: SlamConfig) -> torch.Ten
     model (A-LOAM TransformToStart, `laserOdometry.cpp:147-194`): a point
     fired at intra-scan fraction a is corrected by delta^a — slerp on the
     rotation, linear on the translation.  The fraction is the column index
-    over the width."""
+    over the width.  `xyz` (..., H*W, 3) with `delta` over the same leading
+    dims."""
     sc = cfg.sensor
-    col = (torch.arange(xyz.shape[0], device=xyz.device) % sc.image_width).float()
+    col = (torch.arange(xyz.shape[-2], device=xyz.device) % sc.image_width).float()
     alpha = (col / sc.image_width)[:, None]
     ident = torch.zeros(4, dtype=xyz.dtype, device=xyz.device)
     ident[0].fill_(1.0)
-    q_a = se3.slerp(ident, delta.q, alpha)
-    return se3.quat_rotate(q_a, xyz) + alpha * delta.t
+    q_a = se3.slerp(ident, delta.q[..., None, :], alpha)
+    return se3.quat_rotate(q_a, xyz) + alpha * delta.t[..., None, :]
 
 
 def slam_step(
@@ -122,7 +149,55 @@ def slam_step(
     ground_u: torch.Tensor | None = None,   # (ransac_iters, 3) draws in
     # [0, 1); drawn from the state's generator when None
 ) -> tuple[SlamState, SlamOutput]:
+    return _step(state, xyz, inten, timestamp, detect_mask, cfg, fallback_delta,
+                 ground_u)
+
+
+def slam_step_batched(
+    state: SlamState,              # from init_batched_state
+    xyz: torch.Tensor,             # (B, H*W, 3) organized scans
+    inten: torch.Tensor,           # (B, H*W)
+    timestamps,                    # (B,) tensor, or one time for all
+    detect_mask: torch.Tensor,
+    cfg: SlamConfig,
+    ground_u: torch.Tensor | None = None,   # (B, ransac_iters, 3) draws;
+    # each session's own generator draws them when None
+) -> tuple[SlamState, SlamOutput]:
+    """One frame of B independent sessions in one launch sequence.  Every
+    tensor of the output has a leading B; `host` is a list of B HostFlags."""
+    return _step(state, xyz, inten, timestamps, detect_mask, cfg, None, ground_u)
+
+
+def _take_sessions(tree, idx: torch.Tensor):
+    """The sessions `idx` of every tensor in a NamedTuple tree."""
+    if isinstance(tree, torch.Tensor):
+        return torch.index_select(tree, 0, idx)
+    return type(tree)(*(_take_sessions(f, idx) for f in tree))
+
+
+def _fallback_batched(state: SlamState, fc, flags: list, cfg: SlamConfig) -> Pose:
+    """The geometric fallback delta of every session: solved on the
+    sub-batch whose flags say `skip & has_prev`, the identity elsewhere."""
+    B = len(flags)
+    dev = state.merged_pose.q.device
+    sel = tuple(b for b, f in enumerate(flags) if f.skip and f.has_prev)
+    if len(sel) == B:
+        return geometric.geometric_delta(state.geo, fc, cfg)
+    ident = Pose.identity((B,), device=dev)
+    if not sel:
+        return ident
+    idx = index.constant(sel, torch.int64, dev)
+    sub = geometric.geometric_delta(_take_sessions(state.geo, idx),
+                                    _take_sessions(fc, idx), cfg)
+    return Pose(ident.q.index_copy(0, idx, sub.q), ident.t.index_copy(0, idx, sub.t))
+
+
+def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
+          fallback_delta: Pose | None, ground_u) -> tuple[SlamState, SlamOutput]:
+    """The step over the state's leading dims: none for one session, (B,)
+    for a batch (`state.gen` is then a tuple of B generators)."""
     dev = xyz.device
+    batched = state.merged_pose.q.dim() == 2
     if cfg.sensor.undistort:
         xyz = undistort_scan(xyz, state.last_delta, cfg)
     scan = projection.project_organized(xyz, inten, cfg.sensor)
@@ -136,7 +211,11 @@ def slam_step(
     fc = curvature.extract_features(scan, cfg.sensor, cfg.geometric)
     skip, has_prev, is_kf = torch.stack(
         [odo_out.skip, state.geo.has_prev, odo_out.is_keyframe]).tolist()
-    host = HostFlags(skip, has_prev, is_kf)
+    if batched:
+        host = [HostFlags(*f) for f in zip(skip, has_prev, is_kf)]
+        fallback_delta = _fallback_batched(state, fc, host, cfg)
+    else:
+        host = HostFlags(skip, has_prev, is_kf)
     if fallback_delta is None:
         if skip and has_prev:
             fallback_delta = geometric.geometric_delta(state.geo, fc, cfg)
@@ -151,8 +230,12 @@ def slam_step(
 
     # ground extraction (C2)
     if ground_u is None:
-        ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
-    gres = ground.extract_ground(ground_u, xyz, scan.valid.reshape(-1), cfg.ground)
+        if batched:
+            ground_u = torch.stack([ground.draw_uniforms(g, cfg.ground, dev)
+                                    for g in state.gen])
+        else:
+            ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
+    gres = ground.extract_ground(ground_u, xyz, scan.valid.flatten(-2), cfg.ground)
 
     # scan-to-map (C14); corners = less-sharp cloud (the reference feeds its
     # corner ikd-tree with the less-sharp features, `:478-479`); surf =

@@ -7,7 +7,12 @@ its maximum runs slower under load."""
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import os
 import subprocess
+import threading
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -68,3 +73,31 @@ def synchronize(dev) -> None:
     """Wait for the card's queued work (nothing to wait for on the CPU)."""
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def count_syncs(enabled: bool):
+    """Count host syncs by call site for the length of the block (CUDA's
+    sync debug mode warns on each one); yields a Counter filled as they
+    come.  A sync made on another thread than the caller's is keyed with
+    that thread's name in brackets.  With `enabled` false (or on the CPU)
+    nothing is counted."""
+    sites = collections.Counter()
+    caller = threading.current_thread()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            site = f"{os.path.basename(filename)}:{lineno}"
+            th = threading.current_thread()
+            sites[site if th is caller else f"[{th.name}] {site}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        if enabled:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            if enabled:
+                torch.cuda.set_sync_debug_mode(0)

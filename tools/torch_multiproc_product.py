@@ -28,6 +28,13 @@ keys) plus `device` (the card's name and power limit, or "cpu");
 `local_devices_per_process` is 1.  `--small` runs a 192-keyframe state (a
 lap and a quarter of the 156-node lap, so that 102 loop edges close) at
 small_test_config widths on the CPU.
+
+`--attribute cpu,cuda` instead runs, in this process, `refine(mesh=None)`
+on the state built on each listed device, with and without the PGO, and
+writes where the BA's initial cost comes from: each device's PGO ATE, BA
+observations and initial and final BA cost on the drifted chain and after
+the PGO, the largest distance between the devices' PGO poses, and the BA's
+initial cost on the first device from the other devices' PGO poses.
 """
 
 from __future__ import annotations
@@ -330,6 +337,49 @@ def worker(pid: int, nproc: int, coordinator: str, out_path: str | None,
         dist.destroy_process_group()
 
 
+def attribute(names: list[str], small: bool, out_path: str | None) -> dict:
+    """The BA cost gap, attributed across devices (see the docstring)."""
+    cfg = product_config(small)
+    rec, pgo = {"scale": "small" if small else "PRODUCT (default SlamConfig)",
+                "devices": {}}, {}
+    K = cfg.loop.max_keyframes
+    _, gt_t = ground_truth(K)
+    for name in names:
+        dev = devices.resolve(name)
+        st = synth_product_state(cfg, dev)
+        t0 = time.perf_counter()
+        chain = dist_backend.refine(st, cfg, mesh=None, run_pgo=False)
+        full = dist_backend.refine(st, cfg, mesh=None)
+        devices.synchronize(dev)
+        pgo[name] = Pose(full.state.graph.poses.q.cpu(), full.state.graph.poses.t.cpu())
+        rec["devices"][name] = {
+            "device": devices.describe(dev),
+            "ba_observations": int(full.num_obs),
+            "chain_ba_cost_initial": float(chain.ba_initial_cost),
+            "chain_ba_cost_final": float(chain.ba_final_cost),
+            "pgo_ate_m": _ate(pgo[name].t[:K].numpy(), gt_t),
+            "ba_cost_initial": float(full.ba_initial_cost),
+            "ba_cost_final": float(full.ba_final_cost),
+            "seconds": time.perf_counter() - t0}
+        print(f"attribute {name}: {rec['devices'][name]}", flush=True)
+    first = names[0]
+    st0 = synth_product_state(cfg, devices.resolve(first))
+    for name in names[1:]:
+        rec[f"pgo_max_abs_dt_{first}_vs_{name}_m"] = float(
+            np.abs(pgo[first].t.numpy() - pgo[name].t.numpy()).max())
+        # the BA on the first device from the other device's PGO poses
+        other = Pose(pgo[name].q.to(st0.graph.poses.q.device),
+                     pgo[name].t.to(st0.graph.poses.t.device))
+        swapped = dist_backend.refine(st0._replace(graph=st0.graph._replace(poses=other)),
+                                      cfg, mesh=None, run_pgo=False)
+        rec[f"ba_cost_initial_on_{first}_at_{name}_pgo_poses"] = float(swapped.ba_initial_cost)
+    print(json.dumps(rec, indent=1))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--procs", type=int, default=None,
@@ -340,7 +390,12 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=3600.0)
     ap.add_argument("--worker", type=int, default=None)
     ap.add_argument("--coordinator", type=str, default=None)
+    ap.add_argument("--attribute", type=str, default=None,
+                    help="comma-separated devices: attribute the BA cost gap instead")
     args = ap.parse_args(argv)
+    if args.attribute:
+        attribute(args.attribute.split(","), args.small, args.out)
+        return 0
     if args.worker is not None:
         worker(args.worker, args.procs, args.coordinator, args.out, args.timeout,
                args.device, args.small)
