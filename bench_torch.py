@@ -15,10 +15,13 @@ the sensor's 10 Hz, so `vs_baseline` is (scans/s) / 10.
 - `value`: `SlamSystem.process` over the 420-frame circuit with its
   textureless span, loop closure, PGO and live feedback on
   (`bench.py:62-105`), rendered on the card before the timed loop (about
-  440 MB on the device at full width).
+  440 MB on the device at full width).  `process` runs each frame through
+  `pipeline.frame_graph.FrameGraph`: on the card, CUDA graphs replayed over
+  a state updated in place (the reference's jitted, donating step).
 - `compile_s` keeps `bench.py`'s key but holds the circuit's first frame's
-  time: the port compiles nothing, so it is first-use set-up (CUDA context,
-  the kernels' build on a cold checkout, library handles) plus one frame.
+  time: first-use set-up (CUDA context, the kernels' build on a cold
+  checkout, library handles), one eager frame and the capture of the graphs
+  its branches take (the counterpart of XLA's compile of the first call).
 
 Both measurements use `os0_64_config()`; `--small` (small_test_config)
 rehearses the script on the CPU.

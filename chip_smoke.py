@@ -6,8 +6,10 @@ NVIDIA GPU.
 
 Phases (any failure exits non-zero before the result lines are printed):
 
-1. build: compile the CUDA nearest-neighbour kernels (`csrc/nn.cu`) from the
-   checkout and print nvcc's register/shared-memory report and build time;
+1. build: compile the CUDA kernels from the checkout, one nvcc for each
+   source started together (`csrc/nn.cu`, the nearest-neighbour kernels;
+   `csrc/eigsym.cu`, the Jacobi eigensolver), and print nvcc's
+   register/shared-memory report and the build time;
 2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
    their plain PyTorch versions at the ICP shapes (P = 2048 sources,
    M = 6144 targets) on three input sets — random clouds with duplicated
@@ -49,7 +51,34 @@ Phases (any failure exits non-zero before the result lines are printed):
    return leg to the start, at least 16 plane residuals on every frame after
    the first, the ground map growing on every frame and changed by the
    rebuild at the accepted loop only, a finite 38-row `trajectory()` whose
-   end lies within 0.5 m of the rendered end;
+   end lies within 0.5 m of the rendered end (the stage times come from a
+   run of the eager `fused_step`: a synchronize cannot be captured);
+6b. graph: the compiled frame (`pipeline/frame_graph.py`: `SlamSystem`'s
+   non-keyframe frame as up to four replayed CUDA graphs over a state
+   updated in place).  First the Jacobi eigensolver (`ops/eigsym.py`)
+   against `torch.linalg.eigh`/`eigvalsh` at its three call sites' shapes,
+   on the matrices the eager step hands it on the slice's first two frames
+   (the RANSAC refit's 3x3 covariances, `fit_lines`' (Q, 3, 3) batch, the
+   solves' 6x6 Hessians) and on random SPD matrices of those shapes:
+   eigenvalues within 1e-5 of the largest |eigenvalue|, eigenvectors with
+   |dot| >= 1 - 1e-4 where the eigengap is above 1e-3 of it; its times by
+   CUDA events beside its bound, its plain version's and
+   `torch.linalg.eigh`'s.  Then the slice at full width through
+   `SlamSystem` (a timed run, a run with host syncs counted, and the first
+   12 frames or so again with six non-keyframe frames traced by
+   `torch.profiler`: a trace costs seconds) against two runs of the eager
+   `fused_step` loop: the same keyframes, skips and loop, positions within
+   the eager runs' spread, on every non-keyframe frame after capture
+   exactly one host sync (the flags read in `FrameGraph.step`) and at most
+   4 graph replays (`FrameGraph`'s count), and on the traced frames at most
+   4 `cudaGraphLaunch` calls and at most 8 other launch calls (input
+   copies, timestamp fill, draws, the flags read, `FrameInfo` clone);
+   printed: ms and device us per non-keyframe frame eager and graphed,
+   capture seconds per graph, peak memory.  Then 8
+   constant-intensity frames at full width: the fallback graph captured
+   and replayed, the eager run's decisions.  Kernel launches are counted
+   over the timed graph run (`graph`; a replay counts the launches its
+   capture recorded);
 7. stream-small: `StreamingRunner` at small_test_config over a 12-frame
    corridor scan log (the same ground-RANSAC draws handed to every run):
    the CPU and the card take the same keyframes, skips and loops, `run` and
@@ -117,7 +146,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    keyframes and equal final positions; 32 frames, cut from 64 to keep the
    phase under 150 s), `torch_slope_probe --frames 48`
    (the frame classes must sum to 47), `torch_profile_stages --reps 5`
-   (every one of the ten stages must show device time and a kernel count),
+   (every one of the ten stages and the `FULL frame (graphs)` row must show
+   device time and a kernel count),
    `torch_scaling_bench --devices 1` (BA solve time against size),
    `torch_scaling_projection --reps 2` and `torch_multiproc_product` (one
    NCCL rank, product scale: 1024 nodes and 200 loop edges, the PGO and
@@ -154,7 +184,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    Kernel launches are counted over the B = 8 run (`multisession`): the
    step reaches no loop candidate, so the NN kernels launch 0 times.
 
-Every frame runs `fused.fused_step`: `slam_step` (intensity odometry,
+Every frame runs the fused step (through `FrameGraph` wherever a phase uses
+`SlamSystem` or `StreamingRunner`): `slam_step` (intensity odometry,
 curvature features, geometric fallback on a skipped frame, mux, ground
 RANSAC, scan-to-map), on a keyframe `loop.keyframe_core` with the
 scan-to-map pose, at an accepted loop the correction feedback and the map
@@ -165,7 +196,7 @@ The line before the last is the per-kernel JSON record; the last line is
 
     python3 chip_smoke.py --phase NAME
 
-with NAME one of kernel, grid, small, fallback, slice, stream-small,
+with NAME one of kernel, grid, small, fallback, slice, graph, stream-small,
 checkpoint, geoslam, stream, refine, tools, measure, multisession
 
 builds the kernels and runs that one phase alone (no result lines; refine
@@ -181,6 +212,7 @@ the whole sequence with the device's busy share and its top kernels.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import bz2
@@ -203,10 +235,11 @@ import torch.distributed as dist
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import grid_hash, pallas_nn, projection, solver, voxel
+from intensity_slam_tpu_torch.ops import (eigsym, grid_hash, pallas_nn, projection, solver,
+                                          voxel)
 from intensity_slam_tpu_torch.parallel import ba_builder, dist_ba, dist_backend, multiproc
-from intensity_slam_tpu_torch.pipeline import (fused, geometric_slam, loop, mapping,
-                                               odometry, slam)
+from intensity_slam_tpu_torch.pipeline import (frame_graph, fused, geometric_slam, loop,
+                                               mapping, odometry, slam)
 from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
 from intensity_slam_tpu_torch.utils import device as devices
@@ -308,36 +341,93 @@ def run_slam(cfg, xyz, inten, device, count_syncs=False) -> dict:
         t_step=t_step, syncs=sum(sync_sites.values()), sync_sites=sync_sites)
 
 
-def run_system(cfg, xyz, inten, device, count_syncs=False) -> dict:
-    """The main path: `SlamSystem.process` on every frame.  Nothing is read
-    from the device inside the loop beyond what the step reads itself; the
-    per-frame scalars are fetched after the sequence."""
-    device = torch.device(device)
-    system = SlamSystem(cfg, seed=0, device=device)
-    infos, t_step, after = [], [], []
-    keep = lambda r: (r[1].num_plane_residuals, r[1].map_points)
-    with captured(slam.mapping, "mapping_step", keep) as mapped, \
-            sync_counter(count_syncs) as sync_sites:
-        for k in range(xyz.shape[0]):
-            _sync_untracked(device)
-            t0 = time.perf_counter()
-            infos.append(system.process(xyz[k], inten[k], k * 0.1))
-            _sync_untracked(device)
-            t_step.append(time.perf_counter() - t0)
-            after.append(system.state.slam.mapping.ground_map.num_points)
+def frame_summary(infos) -> dict:
+    """Keyframes, skips, loop decisions and positions of a run's FrameInfos
+    (read after the run)."""
     frames = [(bool(i.skip), bool(i.is_keyframe)) for i in infos]
     kfs = [dict(kf=int(i.num_kf) - 1, frame=k,
                 candidate=math.isfinite(float(i.icp_fitness)),
                 accepted=bool(i.loop_found), loop_idx=int(i.loop_idx),
                 fitness=float(i.icp_fitness))
            for k, i in enumerate(infos) if frames[k][1]]
+    return dict(frames=frames, kfs=kfs,
+                pose_t=torch.stack([i.pose_t for i in infos]).cpu())
+
+
+def run_system(cfg, xyz, inten, device, count_syncs=False) -> dict:
+    """The main path: `SlamSystem.process` on every frame (the fused step
+    through `FrameGraph`'s CUDA graphs).  Nothing is read from the device
+    inside the timed step beyond what the step reads itself; the per-frame
+    scalars are fetched after the sequence."""
+    device = torch.device(device)
+    system = SlamSystem(cfg, seed=0, device=device)
+    infos, t_step, after, mapped = [], [], [], []
+    with sync_counter(count_syncs) as sync_sites:
+        for k in range(xyz.shape[0]):
+            _sync_untracked(device)
+            t0 = time.perf_counter()
+            infos.append(system.process(xyz[k], inten[k], k * 0.1))
+            _sync_untracked(device)
+            t_step.append(time.perf_counter() - t0)
+            # the frame's scan-to-map counts (graph outputs: copied now)
+            out = system.graph.last_output
+            mapped.append((out.num_plane_residuals.clone(), out.map_points.clone()))
+            after.append(system.state.slam.mapping.ground_map.num_points.clone())
     return dict(
-        system=system, frames=frames, kfs=kfs, t_step=t_step,
+        system=system, t_step=t_step, **frame_summary(infos),
         plane=[int(p) for p, _ in mapped],
         map_points=[int(m) for _, m in mapped],       # after the frame's insert
         map_points_after=[int(a) for a in after],     # after the frame's rebuild
         traj=system.trajectory(),
         syncs=sum(sync_sites.values()), sync_sites=sync_sites)
+
+
+def run_fused(cfg, xyz, inten, device, traced=()) -> dict:
+    """A loop of the functional `fused.fused_step` (eagerly, no graphs) over
+    a sequence: the yardstick of the graph path.  For the frames `traced`,
+    the device time and device kernels from a `torch.profiler` trace."""
+    device = torch.device(device)
+    mask = projection.detection_mask(cfg.sensor, device=device)
+    st = fused.init_state(cfg, 0, device=device)
+    infos, t_step, dev_us, kernels = [], [], [], []
+    for k in range(xyz.shape[0]):
+        with frame_trace(k in traced, host=False) as tr:
+            _sync_untracked(device)
+            t0 = time.perf_counter()
+            st, info = fused.fused_step(st, xyz[k], inten[k], k * 0.1, mask, cfg)
+            _sync_untracked(device)
+            t_step.append(time.perf_counter() - t0)
+        infos.append(info)
+        dev_us.append(tr.get("device_us"))
+        kernels.append(tr.get("device_kernels"))
+    return dict(state=st, t_step=t_step, device_us=dev_us, device_kernels=kernels,
+                **frame_summary(infos))
+
+
+@contextlib.contextmanager
+def frame_trace(enabled: bool, host: bool = True):
+    """With `enabled`, a `torch.profiler` trace of the block; yields a dict
+    filled at its end: device time (kernels, copies, fills) in us, device
+    kernels, and (with `host`, which costs the trace of every host
+    operation) the host's launch calls by name (`cudaGraphLaunch` for a
+    graph replay, the others for single kernels, copies and fills)."""
+    res: dict = {}
+    if not enabled:
+        yield res
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
+        yield res
+    gpu = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    res["device_us"] = sum(e.time_range.elapsed_us() for e in gpu)
+    res["device_kernels"] = len(gpu)
+    res["launch_calls"] = collections.Counter(
+        e.name for e in prof.events() if e.device_type.name == "CPU"
+        and e.name.startswith("cu") and any(w in e.name for w in LAUNCH_WORDS))
+
+
+LAUNCH_WORDS = ("Launch", "Memcpy", "Memset")
 
 
 def time_cuda(fn, reps=50, warmup=5) -> float:
@@ -411,11 +501,13 @@ def time_cuda_batch(fn, n: int, reps=20, warmup=3) -> float:
                      warmup=warmup) / n
 
 
-def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3) -> float:
+def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3,
+                     min_seen: int | None = None) -> float:
     """Median device-side duration in microseconds of the kernel `name`
-    over `n` calls of `fn`, from a `torch.profiler` trace that saw all `n`
-    launches.  CUPTI now and then drops a launch from a trace (32 of 33
-    seen), so up to `traces` traces are taken."""
+    over `n` calls of `fn`, from a `torch.profiler` trace that saw at least
+    `min_seen` (by default all `n`) of the launches.  CUPTI now and then
+    drops a launch from a trace (32 of 33 seen; the eigensolver's 30 of 33
+    in every trace of a whole run), so up to `traces` traces are taken."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -427,7 +519,7 @@ def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3) -> float:
             torch.cuda.synchronize()
         durs = [e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type.name == "CUDA" and name in e.name]
-        if len(durs) >= n:
+        if len(durs) >= (min_seen or n):
             return statistics.median(durs)
         seen.append(len(durs))
     raise SmokeFailure(f"the profiler saw {seen} launches of {name} in {traces} traces of {n}")
@@ -514,14 +606,20 @@ def kernel_phase(dev, cfg) -> dict:
                   device_ms=pack_device_us / 1e3, floor_ms=floor_ms))
 
 
+# the hand kernels' wrappers by the key of their record (`KERNELS`)
+WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
+            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh}
+
+
 def reset_launches() -> None:
-    pallas_nn.pack_targets.launches = 0
-    pallas_nn.nearest_neighbor_packed.launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
 
 
 def read_launches() -> dict:
-    return dict(nn=pallas_nn.nearest_neighbor_packed.launches,
-                pack=pallas_nn.pack_targets.launches)
+    """Each kernel's launches since `reset_launches` (a graph replay adds
+    the launches its capture recorded: `frame_graph.KERNEL_WRAPPERS`)."""
+    return {key: w.launches for key, w in WRAPPERS.items()}
 
 
 def decisions(r: dict):
@@ -701,9 +799,10 @@ def slice_phase(dev) -> dict:
     r = run_system(cfg, xyz, inten, dev)
     launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    # the same path with each stage synchronized and timed
+    # the same frames through the eager step (no graphs) with each stage
+    # synchronized and timed (a synchronize cannot be captured)
     with stage_timers(SYSTEM_STAGES) as stage:
-        rt = run_system(cfg, xyz, inten, dev)
+        rt = run_fused(cfg, xyz, inten, dev)
     # and with every host sync counted (the sync debug mode's warnings slow
     # the host, so this run is not timed)
     reset_launches()
@@ -748,7 +847,7 @@ def slice_phase(dev) -> dict:
           f"frame {r['t_step'].index(max(r['t_step']))}); peak device memory "
           f"{peak_mb:.0f} MiB; the maps hold {maps_b} bytes, the keyframe store "
           f"{store_b} bytes")
-    print("  each stage synchronized (a separate run; stages nest):")
+    print("  each stage synchronized (a separate run of the eager fused_step; stages nest):")
     print_stage_rows([("process", rt["t_step"])]
                      + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
     print(f"  host syncs {rs['syncs']} in {n} frames = {rs['syncs'] / n:.2f} per "
@@ -1404,7 +1503,7 @@ def refine_phase(dev, circuit: dict) -> dict:
         check(bool(torch.isfinite(pose(res_m)).all()), "non-finite refined pose")
         check(est.shape == (CIRCUIT_FRAMES, 3) and bool(torch.isfinite(est).all()),
               "the refined circuit trajectory is not finite")
-        check(inside == dict(nn=0, pack=0), f"refine launched kernels: {inside}")
+        check(not any(inside.values()), f"refine launched kernels: {inside}")
         del adopted, sharded, res, res_m
         online = online_refine_run(dev, mesh)
         small = small_refine_runs(dev, mesh)
@@ -1578,9 +1677,10 @@ def profile_phase(dev) -> None:
         synthetic.corridor_world(device=dev), cfg.sensor)
     run_system(cfg, xyz, inten, dev)              # warm-up, as in slice_phase
     with stage_timers(SYSTEM_STAGES) as stage:
-        r = run_system(cfg, xyz, inten, dev)
+        r = run_fused(cfg, xyz, inten, dev)
     print(f"stage times, full-width slice ({len(r['frames'])} frames, "
-          f"{len(r['kfs'])} keyframes; each stage synchronized, stages nest):")
+          f"{len(r['kfs'])} keyframes; the eager fused_step, each stage "
+          f"synchronized, stages nest):")
     print_stage_rows([("process", r["t_step"])]
                      + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
 
@@ -1780,7 +1880,7 @@ def measure_phase(dev) -> dict:
         print(f"measure: profile {r['stage']}: host {r['host_ms']:.3f} ms, device "
               f"{r['device_us']} us, {r['kernels']} kernels, bound {r['bound_us']} us "
               f"({r['bound_by']})")
-    check(len(rows) == 10 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
+    check(len(rows) == 11 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
                                   and isinstance(r["kernels"], int) and r["kernels"] > 0
                                   for r in rows),
           f"measure: profile rows without device time or kernels: {rows}")
@@ -1882,7 +1982,7 @@ def solver_loop_line() -> int:
     iteration), as the sync counter keys it."""
     import inspect
     lines, first = inspect.getsourcelines(solver.solve_pose)
-    return first + next(i for i, ln in enumerate(lines) if "if not bool(" in ln)
+    return first + next(i for i, ln in enumerate(lines) if "not bool(active" in ln)
 
 
 def multisession_phase(dev) -> dict:
@@ -1995,30 +2095,358 @@ def multisession_phase(dev) -> dict:
     return dict(launches=launches)
 
 
+# ---- slice 10: the compiled frame (FrameGraph) and its eigensolver --------
+
+EIG_VAL_TOL = 1e-5       # eigenvalue error, relative to the largest |eigenvalue|
+EIG_VEC_TOL = 1e-4       # 1 - |dot| of an eigenvector against the plain one's,
+EIG_GAP_REL = 1e-3       # where its eigengap is above this (relative)
+GRAPH_MAX_REPLAYS = 4    # graph replays a non-keyframe frame may take
+GRAPH_MAX_OTHER = 8      # other launches: input copies, timestamp, draws, info
+GRAPH_TRACED = 6         # non-keyframe frames traced (a trace costs seconds)
+FALLBACK_FRAMES = 8
+
+
+@contextlib.contextmanager
+def recorded_inputs(mod, name: str):
+    """Record a copy of the first argument of every call of `mod.name` for
+    the length of the block; yields the list."""
+    fn = getattr(mod, name)
+    kept = []
+
+    def recording(a, *rest, **kw):
+        kept.append(a.detach().clone())
+        return fn(a, *rest, **kw)
+
+    # the wrapped function counts its launches under its module name
+    recording.launches = getattr(fn, "launches", 0)
+    setattr(mod, name, recording)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, fn)
+        if hasattr(fn, "launches"):
+            fn.launches = recording.launches
+
+
+def eig_sites(dev) -> dict:
+    """The eigensolver's inputs at its three call sites, from the eager step
+    over the slice's first two frames at full width (the RANSAC refit's 3x3
+    covariances, `fit_lines`' (Q, 3, 3) batch, the solves' 6x6 Hessians),
+    each site's matrices beside random SPD matrices of its shape with
+    eigenvalues spread over 8 to 12 decades."""
+    cfg = slice_config(config.SlamConfig())
+    traj = loop_trajectory()
+    xyz, inten = synthetic.render_sequence(
+        se3.Pose(traj.q[:2].to(dev), traj.t[:2].to(dev)),
+        synthetic.corridor_world(device=dev), cfg.sensor)
+    with recorded_inputs(eigsym, "eigh") as e3, recorded_inputs(eigsym, "eigvalsh") as e6:
+        run_fused(cfg, xyz, inten, dev)
+    g = torch.Generator().manual_seed(10)
+
+    def spd(batch, n, decades):
+        q, _ = torch.linalg.qr(torch.randn(batch, n, n, generator=g, dtype=torch.float64))
+        lam = 10.0 ** (decades * torch.rand(batch, n, generator=g, dtype=torch.float64)
+                       - decades / 2)
+        return (q @ torch.diag_embed(lam) @ q.transpose(-1, -2)).float().to(dev)
+
+    ground = torch.stack([a for a in e3 if a.dim() == 2])
+    lines = [a for a in e3 if a.dim() == 3]
+    check(len(ground) >= 3 and lines and e6, f"eigensolver calls: {len(ground)} ground, "
+          f"{len(lines)} fit_lines, {len(e6)} solver")
+    return {"ground (3, 3)": (ground, spd(256, 3, 8.0), True),
+            "fit_lines (Q, 3, 3)": (lines[-1], spd(lines[-1].shape[0], 3, 8.0), True),
+            "solver (6, 6)": (torch.stack(e6), spd(256, 6, 12.0), False)}
+
+
+def eig_errors(a: torch.Tensor, vectors: bool) -> tuple[float, float, float]:
+    """The kernel against its plain version on `a` (..., n, n): (largest
+    eigenvalue error relative to the matrix's largest |eigenvalue|, largest
+    absolute eigenvalue error, largest 1 - |dot| over eigenvectors with a
+    relative eigengap above EIG_GAP_REL), over the matrices with finite
+    entries (the plain version refuses the others) on which the plain
+    version's eigenvalues are finite: on the card `torch.linalg.eigvalsh`
+    gives NaN for an all-zero 6x6 matrix (the first frame's odometry
+    Hessian), where the kernel must give finite values (an infinite error
+    otherwise)."""
+    a = a.reshape((-1,) + a.shape[-2:])
+    ok = torch.isfinite(a).flatten(-2).all(-1)
+    if not bool(ok.all()):
+        print(f"  {int((~ok).sum())} of {ok.numel()} matrices have non-finite entries "
+              f"and are left out")
+        a = a[ok]
+    if vectors:
+        (w, v), (pw, pv) = eigsym.eigh(a), eigsym.eigh_plain(a)
+    else:
+        w, pw, v = eigsym.eigvalsh(a), eigsym.eigvalsh_plain(a), None
+    if not bool(torch.isfinite(w).all()):
+        return float("inf"), float("inf"), float("inf")
+    bad = ~torch.isfinite(pw).all(-1)
+    if bool(bad.any()):
+        k = int(torch.nonzero(bad)[0, 0])
+        print(f"  the plain version's eigenvalues are not finite on {int(bad.sum())} "
+              f"matrices, left out; the first: |entries| max "
+              f"{float(a[k].abs().max()):.6g}, kernel {w[k].tolist()}, plain {pw[k].tolist()}")
+        w, pw = w[~bad], pw[~bad]
+        if vectors:
+            v, pv = v[~bad], pv[~bad]
+    scale = torch.clamp(pw.abs().amax(-1, keepdim=True), min=1e-30)
+    rel = float(((w - pw).abs() / scale).max())
+    err = float((w - pw).abs().max())
+    vec = 0.0
+    if vectors:
+        gap = (pw[..., :, None] - pw[..., None, :]).abs()
+        gap = gap + torch.eye(pw.shape[-1], device=pw.device) * 1e30
+        clear = gap.amin(-1) > EIG_GAP_REL * scale
+        dots = (v * pv).sum(-2).abs()
+        vec = float(torch.where(clear, 1.0 - dots, 0.0).max())
+    return rel, err, vec
+
+
+def eig_bound_ms(a: torch.Tensor, vectors: bool) -> tuple[float, str]:
+    """Least time for the eigendecomposition of `a` on this card: the bytes
+    (the matrices read once, the eigenvalues and eigenvectors written once)
+    over the HBM rate, against the operations of the least a Jacobi method
+    does (one rotation per off-diagonal element, about 8(n-2) + 8n + 20
+    FP32 operations each with vectors, 8(n-2) + 20 without) over the FP32
+    peak."""
+    n = a.shape[-1]
+    batch = a.numel() // (n * n)
+    item = a.element_size()
+    t_bytes = batch * item * (n * n + n + (n * n if vectors else 0)) / PEAK_BYTES_PER_S
+    per_rot = 8 * (n - 2) + 20 + (8 * n if vectors else 0)
+    t_ops = batch * (n * (n - 1) // 2) * per_rot / PEAK_FP32_FLOPS
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def eig_kernel_phase(dev) -> dict:
+    """The Jacobi kernel against `torch.linalg.eigh`/`eigvalsh` at the three
+    call sites' shapes on the frame's and on random SPD matrices, then its
+    times (CUDA events; device-side from `torch.profiler`) beside its bound,
+    its plain version's and `torch.linalg.eigh`'s."""
+    sites = eig_sites(dev)
+    worst = {"eigh": [0.0, 0.0, 0.0], "eigvalsh": [0.0, 0.0, 0.0]}
+    for site, (frame_a, rand_a, vectors) in sites.items():
+        for what, a in (("frame", frame_a), ("random SPD", rand_a)):
+            rel, err, vec = eig_errors(a, vectors)
+            key = "eigh" if vectors else "eigvalsh"
+            worst[key] = [max(x, y) for x, y in zip(worst[key], (rel, err, vec))]
+            print(f"eigensolver {site}, {what} x{a.numel() // a.shape[-1] ** 2}: "
+                  f"eigenvalue error {rel:.3g} of the largest (bar {EIG_VAL_TOL}), "
+                  f"{err:.3g} absolute; eigenvector 1 - |dot| {vec:.3g} "
+                  f"(bar {EIG_VEC_TOL})")
+            check(rel <= EIG_VAL_TOL, f"eigensolver {site} ({what}): eigenvalues {rel:.3g} off")
+            check(vec <= EIG_VEC_TOL, f"eigensolver {site} ({what}): eigenvectors {vec:.3g} off")
+    rec = {}
+    timed = (("eigh", "fit_lines (Q, 3, 3)", eigsym.eigh, eigsym.eigh_plain,
+              torch.linalg.eigh), ("eigvalsh", "solver (6, 6)", eigsym.eigvalsh,
+                                   eigsym.eigvalsh_plain, torch.linalg.eigvalsh))
+    for key, site, kern, plain, lib in timed:
+        # the main path's shapes: fit_lines' (Q, 3, 3) batch, one 6x6 Hessian
+        a = (sites[site][0] if key == "eigh" else sites[site][0][-1]).contiguous()
+        ms = time_cuda(lambda: kern(a))
+        plain_ms = time_cuda(lambda: plain(a))
+        lib_ms = time_cuda(lambda: lib(a))
+        device_us = kernel_device_us(lambda: kern(a), "jacobi_kernel", min_seen=16)
+        bound, bound_by = eig_bound_ms(a, key == "eigh")
+        ground_ms = (time_cuda(lambda: kern(sites["ground (3, 3)"][0][0]))
+                     if key == "eigh" else None)
+        print(f"  {key} kernel at {site} {tuple(a.shape)}: {ms:.4f} ms (device-side "
+              f"{device_us:.2f} us), plain {plain_ms:.4f} ms, torch.linalg.{lib.__name__} "
+              f"{lib_ms:.4f} ms, bound {bound:.6f} ms ({bound_by})"
+              + (f"; at one 3x3 (ground) {ground_ms:.4f} ms" if ground_ms else ""))
+        rec[key] = dict(max_abs_err=worst[key][1], ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                        device_ms=device_us / 1e3, shape=list(a.shape),
+                        max_rel_err=worst[key][0], max_vec_err=worst[key][2])
+    return rec
+
+
+def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None) -> dict:
+    """`SlamSystem.process` (through `FrameGraph`) over the first `frames`
+    frames of a sequence (all by default), each frame synchronized: its host
+    ms, with `syncs` its host syncs by call site, for the frames `traced` a
+    `torch.profiler` trace (device time, device kernels, the host's launch
+    calls); and whether it captured a graph and the replays it took."""
+    system = SlamSystem(cfg, seed=0, device=dev)
+    fg = system.graph
+    infos, rows = [], []
+    for k in range(xyz.shape[0] if frames is None else frames):
+        n_graphs, replays = len(fg.capture_s), sum(fg.replays.values())
+        with sync_counter(syncs) as sites, frame_trace(k in traced) as tr:
+            _sync_untracked(dev)
+            t0 = time.perf_counter()
+            infos.append(system.process(xyz[k], inten[k], k * 0.1))
+            _sync_untracked(dev)
+            dt = time.perf_counter() - t0
+        rows.append(dict(ms=1e3 * dt, sites=collections.Counter(sites), **tr,
+                         captured=len(fg.capture_s) > n_graphs,
+                         replays=sum(fg.replays.values()) - replays))
+    return dict(system=system, rows=rows, **frame_summary(infos))
+
+
+def graph_phase(dev) -> dict:
+    """The non-keyframe frame as replayed CUDA graphs (`FrameGraph`, through
+    `SlamSystem`) against the eager `fused_step`, at full width."""
+    t_phase = time.perf_counter()
+    kern = eig_kernel_phase(dev)
+    cfg = slice_config(config.SlamConfig())
+    traj = loop_trajectory()
+    xyz, inten = synthetic.render_sequence(
+        se3.Pose(traj.q.to(dev), traj.t.to(dev)), synthetic.corridor_world(device=dev),
+        cfg.sensor)
+    n = xyz.shape[0]
+    secs = {"eigensolver": time.perf_counter() - t_phase}
+    tick = time.perf_counter()
+
+    def lap(name):
+        nonlocal tick
+        now = time.perf_counter()
+        secs[name] = now - tick
+        tick = now
+
+    run_fused(cfg, xyz, inten, dev)                           # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    e1 = run_fused(cfg, xyz, inten, dev)
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    lap("eager runs")
+    nonkf = [k for k, (_, kf) in enumerate(e1["frames"]) if not kf]
+    # the non-keyframe frames traced: from the third on (the first two
+    # frames capture the graphs)
+    probe = [k for k in nonkf if k >= 2][:GRAPH_TRACED]
+    e2 = run_fused(cfg, xyz, inten, dev, traced=set(probe[:3]))
+    lap("eager, traced in part")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    ga = run_graphs(cfg, xyz, inten, dev)
+    launches = read_launches()
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    lap("graph run")
+    gs = run_graphs(cfg, xyz, inten, dev, syncs=True)
+    lap("graph syncs")
+    gt = run_graphs(cfg, xyz, inten, dev, traced=set(probe), frames=probe[-1] + 1)
+    lap("graph traced")
+    fg = ga["system"].graph
+    spread = float((e1["pose_t"] - e2["pose_t"]).abs().max())
+    diff = max(float((g["pose_t"] - e["pose_t"]).abs().max())
+               for g in (ga, gs) for e in (e1, e2))
+    dlog = float((ga["system"].state.log.t - e1["state"].log.t).abs().max())
+    same = all(decisions(g) == decisions(e1) for g in (ga, gs, e2))
+    # frames after every graph their branch needs was captured
+    after = [k for k in nonkf if not any(r["captured"] for r in (ga["rows"][k],
+                                                                gs["rows"][k]))]
+    flags_site = f"frame_graph.py:{frame_graph_read_line()}"
+    syncs = [(k, dict(gs["rows"][k]["sites"])) for k in after]
+    counted = [(k, ga["rows"][k]["replays"]) for k in after]
+    other = [(k, sum(v for name, v in gt["rows"][k]["launch_calls"].items()
+                     if "Graph" not in name)) for k in probe]
+    replays = [(k, gt["rows"][k]["replays"],
+                sum(v for name, v in gt["rows"][k]["launch_calls"].items() if "Graph" in name))
+               for k in probe]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
+    print(f"graph (full width slice, {n} frames): decisions of two graph runs and two "
+          f"eager runs equal {same}; keyframes {len(e1['kfs'])}, skips "
+          f"{[k for k, f in enumerate(e1['frames']) if f[0]]}, accepted loops "
+          f"{[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
+    print(f"  positions: eager against eager {spread:.3g} m (the spread), graphs against "
+          f"eager {diff:.3g} m; final log {dlog:.3g} m")
+    print(f"  ms per non-keyframe frame (median, each frame synchronized): eager "
+          f"{med([1e3 * e1['t_step'][k] for k in nonkf]):.3f}, graphs "
+          f"{med([ga['rows'][k]['ms'] for k in after]):.3f} (after capture); keyframes "
+          f"eager {med([1e3 * e1['t_step'][k] for k in range(n) if k not in nonkf]):.3f}, "
+          f"graphs {med([ga['rows'][k]['ms'] for k in range(n) if k not in nonkf]):.3f}")
+    print(f"  device us per non-keyframe frame (median of frames {probe[:3]} eager, "
+          f"{probe} graphs; torch.profiler): eager "
+          f"{med([e2['device_us'][k] for k in probe[:3]]):.1f} in "
+          f"{med([e2['device_kernels'][k] for k in probe[:3]]):.0f} device operations, "
+          f"graphs (the solves at their fixed iterations) "
+          f"{med([gt['rows'][k]['device_us'] for k in probe]):.1f} in "
+          f"{med([gt['rows'][k]['device_kernels'] for k in probe]):.0f}")
+    print(f"  capture s per graph {({k: round(v, 4) for k, v in fg.capture_s.items()})}; "
+          f"replays by graph {dict(fg.replays)}; peak device memory eager "
+          f"{eager_peak:.0f} MiB, graphs {graph_peak:.0f} MiB")
+    print(f"  non-keyframe frames after capture {after}: host syncs by call site "
+          f"{syncs}")
+    print(f"  graph replays a frame (FrameGraph's count) {counted}; on the traced "
+          f"frames (count, cudaGraphLaunch calls) {replays}, other launch calls "
+          f"{other}; by name, frame {probe[-1]}: {dict(gt['rows'][probe[-1]]['launch_calls'])}")
+    check(same, "graph: the graph runs took other decisions than the eager runs")
+    check(diff <= spread, f"graph: positions {diff:.3g} m from the eager runs, whose "
+          f"spread is {spread:.3g} m")
+    check(len(after) >= 10, f"graph: only {len(after)} non-keyframe frames after capture")
+    check(all(s == {flags_site: 1} for _, s in syncs),
+          f"graph: a non-keyframe frame made other host syncs than one flags read: {syncs}")
+    check(len(probe) == GRAPH_TRACED, f"graph: non-keyframe frames to trace {probe}")
+    check(all(r <= GRAPH_MAX_REPLAYS for _, r in counted)
+          and all(c <= GRAPH_MAX_REPLAYS for _, _, c in replays),
+          f"graph: replays a frame {counted}, {replays}")
+    check(all(o <= GRAPH_MAX_OTHER for _, o in other), f"graph: other launches {other}")
+    check(launches["eigh"] > 0 and launches["eigvalsh"] > 0,
+          f"graph: the eigensolver kernel was not launched on the path: {launches}")
+
+    # the fallback segment: 8 constant-intensity frames skip on every frame
+    fcfg = config.SlamConfig()
+    ftraj = forward_trajectory(FALLBACK_FRAMES)
+    fx, fi = synthetic.render_sequence(
+        se3.Pose(ftraj.q.to(dev), ftraj.t.to(dev)), synthetic.corridor_world(device=dev),
+        fcfg.sensor)
+    fi = torch.full_like(fi, 100.0)
+    fe = run_fused(fcfg, fx, fi, dev)
+    fgr = run_graphs(fcfg, fx, fi, dev, "timed")
+    fb_replays = fgr["system"].graph.replays["fallback"]
+    fdiff = float((fgr["pose_t"] - fe["pose_t"]).abs().max())
+    print(f"  fallback ({FALLBACK_FRAMES} constant-intensity frames, full width): skips "
+          f"{sum(f[0] for f in fgr['frames'])}, same decisions as eager "
+          f"{decisions(fgr) == decisions(fe)}, fallback graph captured "
+          f"{'fallback' in fgr['system'].graph.capture_s} and replayed {fb_replays} times, "
+          f"positions {fdiff:.3g} m from eager")
+    check(decisions(fgr) == decisions(fe), "graph: the fallback run took other decisions")
+    check(fb_replays >= FALLBACK_FRAMES - 3, f"graph: fallback replayed {fb_replays} times")
+    lap("fallback")
+    print(f"  graph phase {time.perf_counter() - t_phase:.1f} s "
+          f"({({k: round(v, 1) for k, v in secs.items()})})", flush=True)
+    return dict(launches=launches, kern=kern)
+
+
+def frame_graph_read_line() -> int:
+    """The line of `FrameGraph.step`'s flags read, as the sync counter keys
+    it."""
+    import inspect
+    lines, first = inspect.getsourcelines(frame_graph.FrameGraph.step)
+    return first + next(i for i, ln in enumerate(lines) if ".tolist()" in ln)
+
+
+NN_SOURCE = ("intensity_slam_tpu_torch/csrc/nn.cu", "intensity_slam_tpu/ops/pallas_nn.py:103")
+EIG_SOURCE = ("intensity_slam_tpu_torch/csrc/eigsym.cu",
+              "no Pallas source: XLA's jnp.linalg.eigh at intensity_slam_tpu/ops/ground.py:56 "
+              "and pipeline/mapping.py:167, jnp.linalg.eigvalsh at ops/solver.py:185")
+# (record key, kernel name, source, what it replaces)
 KERNELS = (
-    ("nn", "nn_packed_kernel"),
-    ("pack", "pack_kernel"),
+    ("nn", "nn_packed_kernel", *NN_SOURCE),
+    ("pack", "pack_kernel", *NN_SOURCE),
+    ("eigh", "jacobi_kernel<3, vectors> (eigsym.eigh)", *EIG_SOURCE),
+    ("eigvalsh", "jacobi_kernel<6, values> (eigsym.eigvalsh)", *EIG_SOURCE),
 )
 
 
 def kernel_records(kern: dict, by_path: dict) -> dict:
     """The per-kernel record; `launches` sums the main paths' runs (the
-    slice's `SlamSystem.process`, the circuit's `StreamingRunner.run`, the
-    refine phase's full-width `SlamSystem(cfg, mesh=...)` run, part b, its
-    small-config card run, part c, the tools phase, the measure phase and
-    the multisession phase's B = 8 run),
-    each counted from 0 just before its run and read just after it;
+    slice's `SlamSystem.process`, the graph phase's timed `SlamSystem` run,
+    the circuit's `StreamingRunner.run`, the refine phase's full-width
+    `SlamSystem(cfg, mesh=...)` run, part b, its small-config card run,
+    part c, the tools phase, the measure phase and the multisession phase's
+    B = 8 run), each counted from 0 just before its run and read just after
+    it (a graph replay adds the launches its capture recorded);
     `launches_by_path` splits it."""
     return {"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": "intensity_slam_tpu_torch/csrc/nn.cu",
-        "replaces": "intensity_slam_tpu/ops/pallas_nn.py:103",
+        "source": source,
+        "replaces": replaces,
         "launches": sum(v[key] for v in by_path.values()),
         "launches_by_path": {path: v[key] for path, v in by_path.items()},
         **kern[key],
         "passed": True,
-    } for key, name in KERNELS]}
+    } for key, name, source, replaces in KERNELS]}
 
 
 def main() -> int:
@@ -2032,12 +2460,18 @@ def main() -> int:
     print(devices.describe("cuda"))
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    report = pallas_nn.build(verbose=True)
-    print(f"nn kernels build: {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if ("registers" in line or "smem" in line.lower() or "error" in line.lower()
-                or "Compiling entry" in line):
-            print("  nvcc:", line.strip())
+    # one nvcc for each source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(mod.build, verbose=True)
+                  for name, mod in (("nn", pallas_nn), ("eigsym", eigsym))}
+        reports = {name: b.result() for name, b in builds.items()}
+    print(f"kernels build (nn.cu and eigsym.cu in parallel): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if ("registers" in line or "smem" in line.lower() or "error" in line.lower()
+                    or "Compiling entry" in line or "spill" in line):
+                print(f"  nvcc ({name}):", line.strip())
     if "--profile" in args:
         profile_phase(dev)
         return 0
@@ -2049,6 +2483,7 @@ def main() -> int:
                   "small": lambda: small_phase(dev),
                   "fallback": lambda: fallback_phase(dev),
                   "slice": lambda: slice_phase(dev),
+                  "graph": lambda: graph_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),
                   "checkpoint": lambda: checkpoint_phase(dev),
                   "geoslam": lambda: geoslam_phase(dev),
@@ -2064,6 +2499,7 @@ def main() -> int:
     small_phase(dev)
     fallback_phase(dev)
     sl = slice_phase(dev)
+    gr = graph_phase(dev)
     stream_small_phase(dev)
     checkpoint_phase(dev)
     geoslam_phase(dev)
@@ -2073,13 +2509,15 @@ def main() -> int:
     ms = measure_phase(dev)
     mu = multisession_phase(dev)
     print(devices.describe("cuda"))
-    print(json.dumps(kernel_records(kern, {"slice": sl["launches"],
-                                           "stream": st["launches"],
-                                           "refine": rf["online"]["launches"],
-                                           "refine-small": rf["small"]["launches"],
-                                           "tools": tl["launches"],
-                                           "measure": ms["launches"],
-                                           "multisession": mu["launches"]})))
+    print(json.dumps(kernel_records({**kern, **gr["kern"]},
+                                    {"slice": sl["launches"],
+                                     "graph": gr["launches"],
+                                     "stream": st["launches"],
+                                     "refine": rf["online"]["launches"],
+                                     "refine-small": rf["small"]["launches"],
+                                     "tools": tl["launches"],
+                                     "measure": ms["launches"],
+                                     "multisession": mu["launches"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

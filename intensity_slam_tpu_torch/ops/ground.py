@@ -31,6 +31,7 @@ import torch
 
 from ..config import GroundConfig
 from ..utils import index
+from . import eigsym
 
 
 class GroundResult(NamedTuple):
@@ -60,13 +61,13 @@ def _sample_valid_indices(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _fit_plane_lsq(xyz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted least-squares plane through points: (4,) [n, d], the
-    smallest eigenvector of the weighted covariance, oriented +z (`eigh`
-    leaves the sign free)."""
+    smallest eigenvector of the weighted covariance, oriented +z (the
+    eigensolver leaves the sign free)."""
     wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-6)[..., None]
     centroid = torch.sum(xyz * w[..., None], dim=-2) / wsum
     centered = (xyz - centroid[..., None, :]) * torch.sqrt(w)[..., None]
     cov = centered.transpose(-1, -2) @ centered / wsum[..., None]
-    _, vecs = torch.linalg.eigh(cov)
+    _, vecs = eigsym.eigh(cov)
     n = vecs[..., :, 0]
     n = n * torch.where(n[..., 2:] < 0, -1.0, 1.0)
     d = -_dot(n, centroid)

@@ -32,46 +32,24 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 from typing import NamedTuple
 
 import torch
 
+from ..utils import nvcc
+
 _BIG = 1e30
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "nn.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libisl_nn.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(nvcc.CSRC_DIR, "nn.cu")
+LIBRARY = os.path.join(nvcc.BUILD_DIR, "libisl_nn.so")
+NVCC_FLAGS = ["--fmad=false"]
 
 _lib = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA nearest-neighbour kernel "
-                       "cannot be built")
 
 
 def build(verbose: bool = False) -> str:
     """Compile `csrc/nn.cu` into `_build/libisl_nn.so` unless the library is
     newer than its source.  Returns nvcc's output (empty when up to date)."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    return nvcc.build(SOURCE, LIBRARY, NVCC_FLAGS, verbose)
 
 
 def _library():

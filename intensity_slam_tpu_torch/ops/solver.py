@@ -9,7 +9,14 @@ Robustification is IRLS (Huber/Cauchy weights per residual block).
 
 The JAX package's `lax.while_loop` becomes a Python loop whose condition is
 read on the host once per iteration, so the solve stops on the same iteration
-as the reference.  A residual function may carry its analytic Jacobian as a
+as the reference.  While the current CUDA stream is being captured into a
+graph (`pipeline.frame_graph`), or with `fixed=True`, the loop reads nothing:
+it runs all `iters` iterations and freezes the solve once it meets its test
+(pose, cost, damping, step test and iteration count kept, the frozen
+iterations computed and discarded by `torch.where`), the semantics of a
+vmapped `while_loop`; every output is bit-equal to the early-exit loop's.
+The smallest Hessian eigenvalue comes from `ops.eigsym`, which reads no
+status either.  A residual function may carry its analytic Jacobian as a
 `jacobian(pose)` attribute (`point_to_point` does); any other residual
 function is differentiated with `torch.func.jacfwd`.  The point residuals
 (`point_to_point`, `point_to_plane_nd`, `rotation_only_ground`,
@@ -33,6 +40,7 @@ from torch.func import jacfwd
 
 from ..utils import se3
 from ..utils.se3 import Pose
+from . import eigsym
 
 # residual_fn(pose) -> (res [..., G, D], weight [..., G]) ; weight 0 masks
 # padding rows; the leading dims, when present, are a batch of sessions.
@@ -47,6 +55,11 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor      # () bool — gradient norm below tol at exit
     min_hessian_eig: torch.Tensor  # () smallest eigenvalue of J^T W J at the
     # solution — the degeneracy signal (LOAM's eigen check)
+    # the loop's final state (what decides whether it iterates on)
+    damping: torch.Tensor        # () LM lambda
+    rel_decrease: torch.Tensor   # () last accepted relative cost decrease
+    rejections: torch.Tensor     # () int32 consecutive rejected steps
+    grad_norm: torch.Tensor      # () |J^T W r| of the last iteration
 
 
 def huber_weight(sq_norm: torch.Tensor, delta: float) -> torch.Tensor:
@@ -84,14 +97,17 @@ def solve_pose(
     lm_lambda0: float = 1e-4,
     use_lm: bool = True,
     grad_tol: float = 1e-8,
+    fixed: bool | None = None,
 ) -> SolveResult:
     """Minimize sum_g w_g rho(||r_g(pose)||^2) over SE(3).
 
     `residual_fn` must keep fixed shapes; its weight output masks padding AND
     can encode per-block sqrt-information scaling.  Its optional
     `jacobian(pose)` attribute returns the (..., G, D, 6) Jacobian w.r.t. the
-    right tangent at 0.  One host read per iteration (the loop condition).
-    With a batch of poses (B, 4)/(B, 3) every output has a leading B."""
+    right tangent at 0.  One host read per iteration (the loop condition),
+    none in the fixed form: `fixed=True`, or `fixed=None` while the current
+    CUDA stream is capturing a graph.  With a batch of poses (B, 4)/(B, 3)
+    every output has a leading B."""
 
     def cost_of(p: Pose) -> torch.Tensor:
         r, w = residual_fn(p)
@@ -122,6 +138,9 @@ def solve_pose(
 
     dev = pose0.q.device
     lead = pose0.q.shape[:-1]        # () alone, (B,) for a batch of sessions
+    if fixed is None:
+        fixed = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    freeze = bool(lead) or fixed     # a frozen solve keeps its values
     eye6 = torch.eye(6, device=dev)
     c0 = cost_of(pose0)
     tol = grad_tol * torch.clamp(c0, min=1.0)
@@ -133,7 +152,7 @@ def solve_pose(
     gnorm = torch.full(lead, torch.inf, dtype=c0.dtype, device=dev)
     rel = torch.full(lead, torch.inf, dtype=c0.dtype, device=dev)
     rej = torch.zeros(lead, dtype=torch.int32, device=dev)
-    its = torch.zeros(lead, dtype=torch.int32, device=dev) if lead else None
+    its = torch.zeros(lead, dtype=torch.int32, device=dev) if freeze else None
     k = 0
 
     def iterating():
@@ -145,7 +164,7 @@ def solve_pose(
 
     while k < iters:
         active = iterating()
-        if not bool(active.any() if lead else active):
+        if not fixed and not bool(active.any() if lead else active):
             break
         H, b = linearize(pose)
         # damping: LM diag scaling PLUS an absolute Tikhonov floor (keeps
@@ -161,7 +180,7 @@ def solve_pose(
         cand = se3.retract(pose, delta)
         new_cost = cost_of(cand)
         prev_cost = cost
-        if lead:
+        if freeze:
             # a frozen session keeps everything (a vmapped while_loop)
             keep = lambda new, old: torch.where(active, new, old)
             its = its + active.to(torch.int32)
@@ -169,7 +188,7 @@ def solve_pose(
             keep = lambda new, old: new
         if use_lm:
             accept = new_cost < cost
-            if lead:
+            if freeze:
                 accept = accept & active
             pose = se3.pose_where(accept, cand, pose)
             cost = torch.where(accept, new_cost, cost)
@@ -181,20 +200,24 @@ def solve_pose(
                        rel)
             rej = keep(torch.where(accept, 0, rej + 1).to(torch.int32), rej)
         else:
-            pose = se3.pose_where(active, cand, pose) if lead else cand
+            pose = se3.pose_where(active, cand, pose) if freeze else cand
             cost = keep(new_cost, cost)
             rel = keep((prev_cost - new_cost) / torch.clamp(prev_cost, min=1e-12), rel)
         gnorm = keep(torch.sqrt(torch.sum(b * b, dim=-1)), gnorm)
         k += 1
     H_final, _ = linearize(pose)
-    min_eig = torch.linalg.eigvalsh(H_final)[..., 0]
+    min_eig = eigsym.eigvalsh(H_final)[..., 0]
     return SolveResult(
         pose=pose,
         final_cost=cost,
         initial_cost=c0,
-        iterations=its if lead else torch.full((), k, dtype=torch.int32, device=dev),
+        iterations=its if freeze else torch.full((), k, dtype=torch.int32, device=dev),
         converged=gnorm < tol,
         min_hessian_eig=min_eig,
+        damping=lam,
+        rel_decrease=rel,
+        rejections=rej,
+        grad_norm=gnorm,
     )
 
 

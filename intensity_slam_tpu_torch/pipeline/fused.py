@@ -111,7 +111,7 @@ def _no_undistort(cfg: SlamConfig) -> SlamConfig:
         sensor=dataclasses.replace(cfg.sensor, undistort=False))
 
 
-def _no_keyframe_output(device) -> loop_mod.BackendOutput:
+def no_keyframe_output(device) -> loop_mod.BackendOutput:
     s = lambda v, dtype=torch.float32: index.scalar(v, dtype, device)
     return loop_mod.BackendOutput(
         loop_found=s(False, torch.bool), loop_idx=s(-1, torch.int32),
@@ -132,6 +132,10 @@ def fused_step(
     ground_u: torch.Tensor | None = None,   # the ground RANSAC's draws (see
     # `slam.slam_step`); drawn from the state's generator when None
 ) -> tuple[FusedState, FrameInfo]:
+    """One frame, eagerly and functionally (the inputs are left untouched):
+    `slam.slam_step`, on a keyframe `keyframe_branch`, then `append_log`.
+    `pipeline.frame_graph.FrameGraph` runs the same functions from CUDA
+    graphs over a state it updates in place."""
     dev = xyz.device
     # undistort ONCE and feed the same corrected cloud to both the front-end
     # and the keyframe store (keyframe clouds / ScanContext / ICP must see
@@ -142,60 +146,85 @@ def fused_step(
         state.slam, xyz, inten, timestamp, detect_mask, _no_undistort(cfg),
         ground_u=ground_u,
     )
+    iq, era_qual = frame_quality(state.log, out, cfg)
+    if out.host.is_keyframe:
+        sstate, bstate, bout = keyframe_branch(
+            state.backend, sstate, out, xyz, inten, timestamp, era_qual, cfg)
+    else:
+        bout = no_keyframe_output(dev)
+        bstate = state.backend
+    log, info = append_log(state.log, out, bout, bstate.num_kf, iq, cfg)
+    return FusedState(slam=sstate, backend=bstate, log=log), info
 
-    # per-frame inverse quality: a skipped frame's delta comes from the
-    # geometric fallback (noisier per frame than the intensity solve); a
-    # low-match frame degrades with its match count.  The era mean becomes
-    # the keyframe edge's noise multiplier (posegraph.odo_qual).  Capped at
-    # 3: the multiplier COMPOUNDS with loop_drift_rate.  The "healthy" match
-    # count scales with the feature budget (~4 % of num_features).
-    log = state.log
+
+def frame_quality(log: FrameLog, out: slam.SlamOutput, cfg: SlamConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The frame's inverse quality and its era's mean with it.
+
+    A skipped frame's delta comes from the geometric fallback (noisier per
+    frame than the intensity solve); a low-match frame degrades with its
+    match count.  The era mean becomes the keyframe edge's noise multiplier
+    (posegraph.odo_qual).  Capped at 3: the multiplier COMPOUNDS with
+    loop_drift_rate.  The "healthy" match count scales with the feature
+    budget (~4 % of num_features)."""
     good_floor = 0.04 * cfg.feature.num_features
     iq = torch.where(
         out.skip, 3.0,
         torch.clamp(good_floor / torch.clamp(out.num_good.float(), min=2.0),
                     1.0, 3.0))
     era_qual = (log.era_iq_sum + iq) / (log.era_n + 1.0)
+    return iq, era_qual
 
-    if out.host.is_keyframe:
-        scan_valid = torch.sqrt(torch.sum(xyz * xyz, dim=-1)) >= cfg.sensor.min_range
-        small, slot, bout = loop_mod.keyframe_core(
-            loop_mod.small_of(state.backend), state.backend, xyz, scan_valid,
-            out.desc, out.desc_valid, out.pose, timestamp, cfg,
-            feat_xyz=out.feat_xyz,
-            ground_pts=out.ground_ds, ground_mask=out.ground_ds_mask,
-            corner_pts=out.corner_ds, corner_mask=out.corner_ds_mask,
-            scan_int=inten, era_qual=era_qual,
-        )
-        # live correction feedback (reference: updatePoses + tf
-        # map->pgo_odom): re-base the mapping frame, move the raw anchors,
-        # and (config-gated) rebuild the maps at the optimized poses.  The
-        # correction is identity when no loop was accepted, so the rebase
-        # composes unconditionally.
-        small = loop_mod.apply_correction(small, bout.loop_found, bout.correction)
-        mstate = mapping.apply_correction(sstate.mapping, bout.correction)
-        if cfg.mapping.rebuild_on_loop and bout.accepted:
-            # logical views of the rebuild clouds; the CURRENT keyframe's
-            # payload is not in the store yet, so patch it in
-            k = small.num_kf - 1
-            sl = small.kf_slot.long()
-            b = state.backend
-            mstate = mapping.rebuild_maps(
-                mstate,
-                index.put(b.kf_ground[sl], k, out.ground_ds),
-                index.put(b.kf_ground_mask[sl], k, out.ground_ds_mask),
-                index.put(b.kf_corner[sl], k, out.corner_ds),
-                index.put(b.kf_corner_mask[sl], k, out.corner_ds_mask),
-                small.graph.poses, small.num_kf, cfg)
-        sstate = sstate._replace(mapping=mstate)
-        bstate = loop_mod.write_slot(state.backend, small, slot)
-    else:
-        bout = _no_keyframe_output(dev)
-        bstate = state.backend
 
-    # ring-log append.  The logged pose is expressed in the CURRENT era
-    # frame: when this very frame accepted a loop, compose its correction in
-    # so the entry matches the rebased kf_raw anchor.
+def keyframe_branch(backend: loop_mod.BackendState, sstate: slam.SlamState,
+                    out: slam.SlamOutput, xyz: torch.Tensor, inten: torch.Tensor,
+                    timestamp, era_qual: torch.Tensor, cfg: SlamConfig
+                    ) -> tuple[slam.SlamState, loop_mod.BackendState,
+                               loop_mod.BackendOutput]:
+    """The keyframe back-end on the frame's (undistorted) scan, then the live
+    correction feedback into the step's new state: returns that state with
+    its re-based (and perhaps rebuilt) maps, the new back-end state and the
+    back-end's output."""
+    scan_valid = torch.sqrt(torch.sum(xyz * xyz, dim=-1)) >= cfg.sensor.min_range
+    small, slot, bout = loop_mod.keyframe_core(
+        loop_mod.small_of(backend), backend, xyz, scan_valid,
+        out.desc, out.desc_valid, out.pose, timestamp, cfg,
+        feat_xyz=out.feat_xyz,
+        ground_pts=out.ground_ds, ground_mask=out.ground_ds_mask,
+        corner_pts=out.corner_ds, corner_mask=out.corner_ds_mask,
+        scan_int=inten, era_qual=era_qual,
+    )
+    # live correction feedback (reference: updatePoses + tf
+    # map->pgo_odom): re-base the mapping frame, move the raw anchors,
+    # and (config-gated) rebuild the maps at the optimized poses.  The
+    # correction is identity when no loop was accepted, so the rebase
+    # composes unconditionally.
+    small = loop_mod.apply_correction(small, bout.loop_found, bout.correction)
+    mstate = mapping.apply_correction(sstate.mapping, bout.correction)
+    if cfg.mapping.rebuild_on_loop and bout.accepted:
+        # logical views of the rebuild clouds; the CURRENT keyframe's
+        # payload is not in the store yet, so patch it in
+        k = small.num_kf - 1
+        sl = small.kf_slot.long()
+        b = backend
+        mstate = mapping.rebuild_maps(
+            mstate,
+            index.put(b.kf_ground[sl], k, out.ground_ds),
+            index.put(b.kf_ground_mask[sl], k, out.ground_ds_mask),
+            index.put(b.kf_corner[sl], k, out.corner_ds),
+            index.put(b.kf_corner_mask[sl], k, out.corner_ds_mask),
+            small.graph.poses, small.num_kf, cfg)
+    bstate = loop_mod.write_slot(backend, small, slot)
+    return sstate._replace(mapping=mstate), bstate, bout
+
+
+def append_log(log: FrameLog, out: slam.SlamOutput, bout: loop_mod.BackendOutput,
+               num_kf: torch.Tensor, iq: torch.Tensor, cfg: SlamConfig
+               ) -> tuple[FrameLog, FrameInfo]:
+    """The ring-log append and the frame's scalars.  The logged pose is
+    expressed in the CURRENT era frame: when this very frame accepted a
+    loop, compose its correction in so the entry matches the rebased kf_raw
+    anchor.  `num_kf` is the back-end's keyframe count after the frame."""
     logged = se3.compose(bout.correction, out.pose)
     i = log.count % cfg.log_capacity
     kf_prev = torch.where(bout.compacted, log.kf // 2, log.kf)
@@ -205,7 +234,7 @@ def fused_step(
         t=index.put(log.t, i, logged.t),
         oq=index.put(log.oq, i, out.odom_pose.q),
         ot=index.put(log.ot, i, out.odom_pose.t),
-        kf=index.put(kf_prev, i, bstate.num_kf - 1),
+        kf=index.put(kf_prev, i, num_kf - 1),
         skip=index.put(log.skip, i, out.skip),
         count=log.count + 1,
         num_skips=log.num_skips + out.skip.to(torch.int32),
@@ -213,7 +242,6 @@ def fused_step(
         era_iq_sum=torch.where(is_kf, 0.0, log.era_iq_sum + iq),
         era_n=torch.where(is_kf, 0.0, log.era_n + 1.0),
     )
-
     info = FrameInfo(
         is_keyframe=out.is_keyframe,
         skip=out.skip,
@@ -222,11 +250,11 @@ def fused_step(
         loop_idx=bout.loop_idx,
         icp_fitness=bout.icp_fitness,
         icp_int_corr=bout.icp_int_corr,
-        num_kf=bstate.num_kf,
+        num_kf=num_kf,
         compacted=bout.compacted,
         pose_t=logged.t,
     )
-    return FusedState(slam=sstate, backend=bstate, log=log), info
+    return log, info
 
 
 def keyframe_corrections(backend: loop_mod.BackendState) -> Pose:
@@ -277,7 +305,8 @@ def export_window(state: FusedState, start, length: int, cfg: SlamConfig
     `updatePoses` full rewrite (`intensity_feature_tracker.cpp:110-145`)."""
     log = state.log
     idx = (start + torch.arange(length, device=log.q.device)) % cfg.log_capacity
-    return log.q[idx], log.t[idx], log.kf[idx], log.compactions
+    # a copy of the generation: a state stepped in place moves on under it
+    return log.q[idx], log.t[idx], log.kf[idx], log.compactions.clone()
 
 
 def adopt_graph(state: FusedState, new_poses: Pose, cfg: SlamConfig

@@ -23,8 +23,9 @@ last W mapped frames and adds point-to-point residuals for matches that pass
 the reference's gates.  Defaults match the shipped yaml (`spot.yaml:46`:
 window 0 = inert).
 
-Host reads per step: the pose solve's own (one per iteration) and the status
-read of `torch.linalg.eigh` in `fit_lines`; nothing else.  The JAX package's
+Host reads per step: the pose solve's own (one per iteration, none while
+a CUDA graph is being captured, `solver.solve_pose`); nothing else (the line
+fit's eigensolver, `ops.eigsym`, reads no status).  The JAX package's
 `lax.cond` on the map's point count (the capacity policy) is a masked pass
 here: `grid_hash.evict_far(..., when=over)` runs every frame and keeps
 everything unless the count is over its threshold, so the count never comes
@@ -32,8 +33,7 @@ to the host.
 
 `mapping_step` also advances B sessions at once: a state from
 `init_state(cfg, batch=(B,))` and inputs with a leading B.  The host reads
-stay one per site for all B (one per solver iteration, one per batched
-`eigh`).
+stay one per solver iteration for all B.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import features as feat_ops
-from ..ops import grid_hash, solver
+from ..ops import eigsym, grid_hash, solver
 from ..ops.voxel import voxel_downsample
 from ..utils import index, se3
 from ..utils.se3 import Pose
@@ -202,13 +202,12 @@ def fit_lines(neigh: torch.Tensor, nvalid: torch.Tensor, eig_ratio: float = 3.0)
     lambda_mid of the neighborhood covariance (the reference's
     SelfAdjointEigenSolver line-ness check).  The eigenvector's sign is
     free, so a and b may come out swapped against another implementation;
-    the point-to-line residual does not change under the swap.  On the card
-    `eigh` reads its status back: one host read."""
+    the point-to-line residual does not change under the swap."""
     k = neigh.shape[-2]
     center = torch.mean(neigh, dim=-2)                     # (Q, 3)
     d = neigh - center[..., None, :]
     cov = torch.einsum("...qki,...qkj->...qij", d, d) / k
-    evals, evecs = torch.linalg.eigh(cov)                  # ascending
+    evals, evecs = eigsym.eigh(cov)                        # ascending
     is_line = evals[..., 2] > eig_ratio * evals[..., 1]
     direction = evecs[..., :, 2]
     a = center + 0.1 * direction

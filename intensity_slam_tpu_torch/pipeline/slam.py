@@ -19,13 +19,16 @@ Where the JAX step carries a `jax.random` key for the ground RANSAC, this
 state carries a `torch.Generator`; a caller may hand the draws in instead
 (`ground_u`).  The JAX package's `lax.cond` on `skip & has_prev` is a host
 branch here: `skip`, `has_prev` and `is_keyframe` come to the host in ONE
-read per frame, and `SlamOutput.host` holds them for the caller.
+read per frame, and `SlamOutput.host` holds them for the caller.  The step
+is three functions around that read, `front` (up to the flags), `fallback`
+(the geometric solve the flags may ask for) and `back` (the rest):
+`pipeline.frame_graph` captures each of them into a CUDA graph.
 
 `slam_step_batched` advances B independent sessions (`init_batched_state`)
 one frame in one launch sequence, session by session what `jax.vmap` of the
 JAX step gives: every op runs over a leading session axis, the host reads
 stay one per site for all B (the flags as one (3, B) read, one loop test per
-solver iteration, one status read per batched `eigh`), and the geometric
+solver iteration), and the geometric
 fallback runs on the sub-batch of sessions whose flags say `skip &
 has_prev` (where `jax.vmap` turns the `lax.cond` into a select over all of
 them: the same result).  Session b's RANSAC draws come from its own
@@ -192,12 +195,21 @@ def _fallback_batched(state: SlamState, fc, flags: list, cfg: SlamConfig) -> Pos
     return Pose(ident.q.index_copy(0, idx, sub.q), ident.t.index_copy(0, idx, sub.t))
 
 
-def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
-          fallback_delta: Pose | None, ground_u) -> tuple[SlamState, SlamOutput]:
-    """The step over the state's leading dims: none for one session, (B,)
-    for a batch (`state.gen` is then a tuple of B generators)."""
-    dev = xyz.device
-    batched = state.merged_pose.q.dim() == 2
+class FrontOutput(NamedTuple):
+    """What the front of the step hands to the rest of it."""
+    xyz: torch.Tensor           # the scan, undistorted when the config says so
+    scan: projection.ScanImage
+    odo: odometry.OdometryState     # the odometry's new state
+    odo_out: odometry.OdometryOutput
+    fc: curvature.FeatureClouds
+    flags: torch.Tensor         # (3,) bool [skip, has_prev, is_keyframe]; (3, B)
+    # for a batch: the frame's one host read
+
+
+def front(state: SlamState, xyz, inten, timestamp, detect_mask,
+          cfg: SlamConfig) -> FrontOutput:
+    """Undistortion, projection, intensity odometry, the curvature features
+    and the stacked flags: everything before the frame's one host read."""
     if cfg.sensor.undistort:
         xyz = undistort_scan(xyz, state.last_delta, cfg)
     scan = projection.project_organized(xyz, inten, cfg.sensor)
@@ -209,18 +221,21 @@ def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
     # geometric features every frame (scanRegistration runs per scan); the
     # fallback SOLVE only on skip (`laserOdometry.cpp:406-417`)
     fc = curvature.extract_features(scan, cfg.sensor, cfg.geometric)
-    skip, has_prev, is_kf = torch.stack(
-        [odo_out.skip, state.geo.has_prev, odo_out.is_keyframe]).tolist()
-    if batched:
-        host = [HostFlags(*f) for f in zip(skip, has_prev, is_kf)]
-        fallback_delta = _fallback_batched(state, fc, host, cfg)
-    else:
-        host = HostFlags(skip, has_prev, is_kf)
-    if fallback_delta is None:
-        if skip and has_prev:
-            fallback_delta = geometric.geometric_delta(state.geo, fc, cfg)
-        else:
-            fallback_delta = Pose.identity(device=dev)
+    flags = torch.stack([odo_out.skip, state.geo.has_prev, odo_out.is_keyframe])
+    return FrontOutput(xyz, scan, odo_state, odo_out, fc, flags)
+
+
+def fallback(state: SlamState, fr: FrontOutput, cfg: SlamConfig) -> Pose:
+    """The geometric fallback's delta (C12): run when the flags say `skip &
+    has_prev`."""
+    return geometric.geometric_delta(state.geo, fr.fc, cfg)
+
+
+def back(state: SlamState, fr: FrontOutput, fallback_delta: Pose,
+         ground_u: torch.Tensor, host, cfg: SlamConfig) -> tuple[SlamState, SlamOutput]:
+    """The mux, the geometric state update, ground extraction, scan-to-map
+    and the velocity EMA: everything after the frame's host read."""
+    odo_out, fc, xyz = fr.odo_out, fr.fc, fr.xyz
     # mux (C13): intensity delta unless skipped
     delta = se3.pose_where(odo_out.skip, fallback_delta, odo_out.delta)
     merged = se3.compose(state.merged_pose, delta)
@@ -229,13 +244,7 @@ def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
     geo_state = geometric.update_state(state.geo, fc, delta)
 
     # ground extraction (C2)
-    if ground_u is None:
-        if batched:
-            ground_u = torch.stack([ground.draw_uniforms(g, cfg.ground, dev)
-                                    for g in state.gen])
-        else:
-            ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
-    gres = ground.extract_ground(ground_u, xyz, scan.valid.flatten(-2), cfg.ground)
+    gres = ground.extract_ground(ground_u, xyz, fr.scan.valid.flatten(-2), cfg.ground)
 
     # scan-to-map (C14); corners = less-sharp cloud (the reference feeds its
     # corner ikd-tree with the less-sharp features, `:478-479`); surf =
@@ -255,7 +264,7 @@ def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
         t=0.5 * (state.last_delta.t + delta.t),
     )
     new_state = SlamState(
-        odo=odo_state, geo=geo_state, mapping=map_state, merged_pose=merged,
+        odo=fr.odo, geo=geo_state, mapping=map_state, merged_pose=merged,
         gen=state.gen, last_delta=vel,
     )
     out = SlamOutput(
@@ -278,6 +287,34 @@ def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
         host=host,
     )
     return new_state, out
+
+
+def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
+          fallback_delta: Pose | None, ground_u) -> tuple[SlamState, SlamOutput]:
+    """The step over the state's leading dims: none for one session, (B,)
+    for a batch (`state.gen` is then a tuple of B generators): `front`, the
+    flags read, `fallback` where the flags ask for it, `back`."""
+    dev = xyz.device
+    batched = state.merged_pose.q.dim() == 2
+    fr = front(state, xyz, inten, timestamp, detect_mask, cfg)
+    skip, has_prev, is_kf = fr.flags.tolist()
+    if batched:
+        host = [HostFlags(*f) for f in zip(skip, has_prev, is_kf)]
+        fallback_delta = _fallback_batched(state, fr.fc, host, cfg)
+    else:
+        host = HostFlags(skip, has_prev, is_kf)
+    if fallback_delta is None:
+        if skip and has_prev:
+            fallback_delta = fallback(state, fr, cfg)
+        else:
+            fallback_delta = Pose.identity(device=dev)
+    if ground_u is None:
+        if batched:
+            ground_u = torch.stack([ground.draw_uniforms(g, cfg.ground, dev)
+                                    for g in state.gen])
+        else:
+            ground_u = ground.draw_uniforms(state.gen, cfg.ground, dev)
+    return back(state, fr, fallback_delta, ground_u, host, cfg)
 
 
 def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,

@@ -8,8 +8,12 @@ Here `pipeline.fused` runs the front-end every frame and the whole back-end
 on keyframes, appending everything the host might want to a device-resident
 log.  This class is a thin wrapper:
 
-- `process` runs one fused step per frame and returns the device FrameInfo
-  WITHOUT reading it.  Read any field if you want to wait for the frame.
+- `process` runs one frame through a `frame_graph.FrameGraph` (the fused
+  step replayed from CUDA graphs on the card, the counterpart of the
+  reference's `jax.jit(fused_step, donate_argnums=(0,))`) and returns the
+  device FrameInfo WITHOUT reading it.  Read any field if you want to wait
+  for the frame.  The state is updated in place: `state` is the live
+  buffers, and `snapshot()` gives a copy that later frames leave alone.
 - trajectory/loops/keyframe accessors fetch device state on demand,
   typically once, at the end of a sequence.
 - `refine` hands the live BackendState to the distributed back-end
@@ -34,11 +38,10 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..ops import projection
 from ..parallel import dist_backend
 from ..runtime.spill import LogSpiller, host_array
 from ..utils import checkpoint, se3
-from . import fused
+from . import frame_graph, fused
 
 
 class SlamSystem:
@@ -46,22 +49,28 @@ class SlamSystem:
         self.cfg = cfg
         self.device = torch.device(device)
         self.mesh = mesh
-        self.mask = projection.detection_mask(cfg.sensor, device=self.device)
-        self.state = fused.init_state(cfg, seed, device=self.device)
+        self.graph = frame_graph.FrameGraph(cfg, self.device, seed)
+        self.mask = self.graph.mask
         self._frames = 0
         self._last_refine_kf = 0
         # unbounded trajectory export: raw segments spill to the host before
         # the device ring wraps (runtime.spill.LogSpiller)
         self._spiller = LogSpiller(cfg)
 
+    @property
+    def state(self) -> fused.FusedState:
+        """The live state (updated in place by every frame)."""
+        return self.graph.state
+
+    def snapshot(self) -> fused.FusedState:
+        """A copy of the state that later frames do not change."""
+        return self.graph.snapshot()
+
     # ---- hot path ----------------------------------------------------------
     def process(self, xyz, inten, timestamp, ground_u=None) -> fused.FrameInfo:
         """Run one frame.  Returns device scalars and reads none of them."""
-        xyz = torch.as_tensor(xyz, device=self.device)
-        inten = torch.as_tensor(inten, device=self.device)
-        self.state, info = fused.fused_step(
-            self.state, xyz, inten, timestamp, self.mask, self.cfg,
-            ground_u=ground_u)
+        info = self.graph.step(torch.as_tensor(xyz), torch.as_tensor(inten),
+                               timestamp, ground_u=ground_u)
         self._frames += 1
         self._spiller.maybe_spill(self.state, self._frames)
         every = self.cfg.parallel.refine_every_kf
@@ -82,8 +91,8 @@ class SlamSystem:
             bstate = dist_backend.shard_backend_state(bstate, self.mesh)
         res = dist_backend.refine(bstate, self.cfg, mesh=self.mesh)
         poses = res.state.graph.poses
-        self.state = fused.adopt_graph(
-            self.state, se3.pose_map(lambda a: a.to(self.device), poses), self.cfg)
+        self.graph.adopt(fused.adopt_graph(
+            self.state, se3.pose_map(lambda a: a.to(self.device), poses), self.cfg))
 
     # ---- state accessors (each fetch waits; use after the hot loop) --------
     @property
@@ -159,7 +168,7 @@ class SlamSystem:
         """Restore a checkpoint written by either package's `save` onto this
         system's device.  A JAX checkpoint carries no generator state (its
         `rng` key is left behind), so the generator keeps its own."""
-        self.state = checkpoint.restore(prefix + ".fused.npz", self.state)
+        self.graph.adopt(checkpoint.restore(prefix + ".fused.npz", self.state))
         # re-align host counters with the restored device log; segments
         # spilled by the previous process are host state and are gone: the
         # export covers the ring-resident suffix until new spills

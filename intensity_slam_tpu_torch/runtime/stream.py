@@ -7,15 +7,18 @@ reference's process/thread architecture maps onto the host runtime so:
   ---------------------------------------------------------------------
   TCPROS subscriber + spinner decode      C++ Prefetcher / WirePrefetcher
                                           thread (scanlog)
-  ascanRegistration front-end (10 Hz)     caller thread: `fused.fused_step`
+  ascanRegistration front-end (10 Hz)     caller thread: the fused step
+                                          through `FrameGraph` (CUDA graphs)
   loop/factor threads (100 Hz / 10 Hz)    the keyframe branch of fused_step
   mutex-guarded deques + frame drop       native Channel(drop_oldest) to
                                           the pose-writer thread
   blocking debug ofstream                 C++ async TrajectoryWriter
 
-The dispatch thread (the caller's) uploads each frame and calls
-`fused.fused_step`, exactly as `SlamSystem.process` does, and reads nothing
-from the device of its own: the host syncs it makes are fused_step's.
+The dispatch thread (the caller's) uploads each frame and steps it through
+a `pipeline.frame_graph.FrameGraph`, exactly as `SlamSystem.process` does
+(the counterpart of the reference's `jax.jit(fused_step,
+donate_argnums=(0,))`: `state` is updated in place), and reads nothing from
+the device of its own: the host syncs it makes are the step's.
 
 - Uploads go through a ring of `depth` pinned host slots with
   `non_blocking` copies; a CUDA event recorded after each copy guards its
@@ -43,8 +46,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..ops import projection
-from ..pipeline import fused
+from ..pipeline import frame_graph, fused
 from .channel import Channel
 from .scanlog import ScanLog
 from .spill import LogSpiller, host_array
@@ -139,8 +141,8 @@ class StreamingRunner:
                  wire_compress: bool = True, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.mask = projection.detection_mask(cfg.sensor, device=self.device)
-        self.state = fused.init_state(cfg, device=self.device)
+        self.graph = frame_graph.FrameGraph(cfg, self.device)
+        self.mask = self.graph.mask
         self._wire = wire_compress
         self._dirs = None         # device (N, 3) direction LUT (wire mode)
         self._cap = queue_capacity
@@ -160,8 +162,8 @@ class StreamingRunner:
     def reset(self) -> None:
         """Fresh SLAM state (keyframe store, maps, log, spiller) while
         keeping the direction LUT, so that successive passes start from
-        equivalent state."""
-        self.state = fused.init_state(self.cfg, device=self.device)
+        equivalent state.  The captured graphs are kept."""
+        self.graph.adopt(fused.init_state(self.cfg, device=self.device))
         self._spiller = LogSpiller(self.cfg)
         self.num_frames = 0
 
@@ -170,9 +172,12 @@ class StreamingRunner:
             xyz, inten, ts = wire_decode(buf, self._dirs)
         else:
             xyz, inten, ts = buf[1:, :3], buf[1:, 3], buf[0, 0]
-        self.state, info = fused.fused_step(
-            self.state, xyz, inten, ts, self.mask, self.cfg, ground_u=ground_u)
-        return info
+        return self.graph.step(xyz, inten, ts, ground_u=ground_u)
+
+    @property
+    def state(self) -> fused.FusedState:
+        """The live state (updated in place by every frame)."""
+        return self.graph.state
 
     # ---- pose-writer stream (async device->host readback + file IO) -------
     def _writer_loop(self) -> None:

@@ -1,0 +1,110 @@
+"""The Jacobi eigensolver kernel (`intensity_slam_tpu_torch/csrc/eigsym.cu`)
+against its plain PyTorch version (`torch.linalg.eigh` / `eigvalsh`), on the
+card: eigenvalues within 1e-5 of the largest |eigenvalue|, eigenvectors
+(3x3) with |dot| >= 1 - 1e-4 where the eigengap is above 1e-3 of it, in
+float32 and float64; the kernel captured into a CUDA graph and replayed.
+Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where there is
+no card.  This file imports no JAX, so it also runs on the card's machine:
+
+    python -m pytest --noconftest tests/test_torch_eigsym_cuda.py -m cuda -q
+
+The CPU tests at the end hold the wrappers' CPU route (the plain version)
+and their refusals.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from intensity_slam_tpu_torch.ops import eigsym
+
+torch.set_num_threads(1)
+
+
+def _spd(batch, n, decades, seed=0):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(batch, n, n)))
+    lam = 10.0 ** (decades * rng.random((batch, n)) - decades / 2)
+    a = q @ (lam[..., None] * np.swapaxes(q, -1, -2))
+    # repeated eigenvalues and a zero matrix at the end of the batch
+    a[-2] = np.eye(n) * 2.0
+    a[-1] = 0.0
+    return torch.from_numpy(a)
+
+
+def _check(a, vectors):
+    if vectors:
+        (w, v), (pw, pv) = eigsym.eigh(a), eigsym.eigh_plain(a)
+    else:
+        w, pw = eigsym.eigvalsh(a), eigsym.eigvalsh_plain(a)
+    torch.cuda.synchronize()
+    scale = torch.clamp(pw.abs().amax(-1, keepdim=True), min=1e-30)
+    assert float(((w - pw).abs() / scale).max()) <= 1e-5
+    assert bool((w[..., 1:] >= w[..., :-1]).all())          # ascending
+    if vectors:
+        gap = (pw[..., :, None] - pw[..., None, :]).abs() + torch.eye(
+            pw.shape[-1], device=pw.device, dtype=pw.dtype) * 1e30
+        clear = gap.amin(-1) > 1e-3 * scale
+        dots = (v * pv).sum(-2).abs()
+        assert float(torch.where(clear, 1.0 - dots, 0.0).max()) <= 1e-4
+        # orthonormal columns whatever the gaps
+        eye = torch.eye(3, device=v.device, dtype=v.dtype)
+        assert float((v.transpose(-1, -2) @ v - eye).abs().max()) <= 1e-5
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("shape,vectors", [((3,), True), ((2048,), True),
+                                           ((1,), False), ((64,), False)])
+def test_cuda_kernel_matches_plain(shape, vectors, dtype):
+    _need_card()
+    n = 3 if vectors else 6
+    a = _spd(max(shape[0], 2), n, 8.0 if vectors else 12.0)[:shape[0]]
+    _check(a.to(dtype).cuda(), vectors)
+    if shape == (1,):
+        _check(a[0].to(dtype).cuda(), vectors)           # one unbatched matrix
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_replays_from_a_graph():
+    _need_card()
+    a = _spd(256, 3, 8.0).float().cuda()
+    eigsym.eigh(a)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = eigsym.eigh.launches
+    with torch.cuda.graph(g):
+        w, v = eigsym.eigh(a)
+    assert eigsym.eigh.launches == before + 1
+    a.copy_(_spd(256, 3, 8.0, seed=1).float().cuda())
+    g.replay()
+    torch.cuda.synchronize()
+    pw, _ = eigsym.eigh_plain(a)
+    assert float((w - pw).abs().max() / pw.abs().max()) <= 1e-5
+
+
+def test_cpu_tensors_take_the_plain_version():
+    a = _spd(16, 3, 4.0)
+    launches = eigsym.eigh.launches, eigsym.eigvalsh.launches
+    w, v = eigsym.eigh(a)
+    pw, pv = torch.linalg.eigh(a)
+    assert torch.equal(w, pw) and torch.equal(v, pv)
+    assert torch.equal(eigsym.eigvalsh(_spd(4, 6, 4.0)),
+                       torch.linalg.eigvalsh(_spd(4, 6, 4.0)))
+    assert (eigsym.eigh.launches, eigsym.eigvalsh.launches) == launches
+
+
+def test_kernel_route_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="shape"):
+        eigsym._launch(torch.zeros(4, 4, 4), vectors=False)
+    with pytest.raises(ValueError, match="shape"):
+        eigsym._launch(torch.zeros(2, 6, 6), vectors=True)
+    with pytest.raises(TypeError, match="float16"):
+        eigsym._launch(torch.zeros(2, 3, 3, dtype=torch.float16), vectors=True)
+    with pytest.raises(ValueError, match="cpu"):
+        eigsym._launch(torch.zeros(2, 3, 3), vectors=True)

@@ -53,7 +53,8 @@ def test_guard_sees_the_package():
                 "utils/checkpoint.py", "pipeline/geometric_slam.py",
                 "pipeline/laser_mapping.py", "parallel/multiproc.py",
                 "parallel/dist_ba.py", "parallel/ba_builder.py", "parallel/dist_pgo.py",
-                "parallel/dist_backend.py", "parallel/live_demo.py", "utils/device.py"):
+                "parallel/dist_backend.py", "parallel/live_demo.py", "utils/device.py",
+                "pipeline/frame_graph.py", "ops/eigsym.py", "utils/nvcc.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
 
 

@@ -36,6 +36,17 @@ keyframe cloud's per-voxel intensity means, part in their last bits).  The
 probe lines say whether the two `fused_step` rows timed the keyframe
 branch.
 
+On the card an eleventh row, `FULL frame (graphs)`, times the probe
+frame, at half the keyframe interval after the last keyframe (so not a
+keyframe: the two `fused_step` probes are, see their probe lines), as
+`SlamSystem` runs it: through
+`pipeline.frame_graph.FrameGraph`, its segments replayed from CUDA graphs
+(captured at the first call) over a state updated in place, which is set
+back to the probe's state before every call, outside the timing and the
+trace.  A replay dispatches no aten op, so the row's FLOPs are the
+`fused_step (non-keyframe)` row's count.  On the CPU a `FrameGraph` runs
+the eager segments, and the row is left out.
+
 On `--device cpu` every device column reads "not measured", and so does
 the bound on a card that the peaks table lacks.  Prints the JAX tool's
 markdown table (its XLA "logical bytes" column has no counterpart and is
@@ -62,7 +73,7 @@ OUT = os.path.join(ROOT, "RESULTS_torch_profile.json")
 from intensity_slam_tpu_torch import config  # noqa: E402
 from intensity_slam_tpu_torch.io import synthetic  # noqa: E402
 from intensity_slam_tpu_torch.ops import curvature, ground, projection  # noqa: E402
-from intensity_slam_tpu_torch.pipeline import fused, geometric, mapping  # noqa: E402
+from intensity_slam_tpu_torch.pipeline import frame_graph, fused, geometric, mapping  # noqa: E402
 from intensity_slam_tpu_torch.pipeline import loop as loop_mod  # noqa: E402
 from intensity_slam_tpu_torch.pipeline import odometry, slam  # noqa: E402
 from intensity_slam_tpu_torch.utils import device as devices  # noqa: E402
@@ -120,13 +131,17 @@ def differences(a, b) -> dict[str, float]:
     return out
 
 
-def device_trace(fn, traces: int = 3) -> tuple[float, int, str, float]:
+def device_trace(fn, traces: int = 3, reset=None) -> tuple[float, int, str, float]:
     """(summed device-side microseconds, device events, the name and summed
     microseconds of the kernel that takes the most) of one call of `fn`
     from a `torch.profiler` trace; a trace that comes back empty is taken
-    again, up to `traces` times."""
+    again, up to `traces` times.  `reset`, when given, runs before each
+    call, outside the trace."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(traces):
+        if reset is not None:
+            reset()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -150,11 +165,17 @@ class Profiler:
         self.card = devices.describe(dev)
         self.rows = []
 
-    def stage(self, name: str, fn, *args):
+    def stage(self, name: str, fn, *args, reset=None, flops=None):
+        """Time `fn(*args)` (see the module docstring).  `reset`, when
+        given, runs before every call, outside the timing; `flops` stands
+        for the count where FlopCounterMode cannot see the work."""
+        reset = reset or (lambda: None)
         before = _clone(args)
+        reset()
         first = fn(*args)
         host = []
         for _ in range(self.reps):
+            reset()
             devices.synchronize(self.dev)
             t0 = time.perf_counter()
             out = fn(*args)
@@ -166,9 +187,11 @@ class Profiler:
                                f"({changed}); the stage changes its inputs in place")
         # outputs may still part where the device sums in atomic order
         repeat = differences(first, out)
-        with FlopCounterMode(display=False) as fc:
-            fn(*args)
-        flops = fc.get_total_flops()
+        if flops is None:
+            reset()
+            with FlopCounterMode(display=False) as fc:
+                fn(*args)
+            flops = fc.get_total_flops()
         opnd = operand_bytes(args) + operand_bytes(out)
         host_us = 1e6 * statistics.median(host)
         row = {"stage": name, "host_ms": host_us / 1e3, "device_us": NOT_MEASURED,
@@ -178,7 +201,7 @@ class Profiler:
                "top_kernel_us": NOT_MEASURED, "repeat_outputs_differing": len(repeat),
                "repeat_max_abs_diff": max(repeat.values(), default=0.0)}
         if self.dev.type == "cuda":
-            dev_us, kernels, top, top_us = device_trace(lambda: fn(*args))
+            dev_us, kernels, top, top_us = device_trace(lambda: fn(*args), reset=reset)
             row.update(device_us=dev_us, kernels=kernels, busy_share=dev_us / host_us,
                        top_kernel=top, top_kernel_us=top_us)
         if self.peaks is not None:
@@ -198,6 +221,22 @@ class Profiler:
             print(f"  call {self.reps + 1} differs from call 1 in {len(repeat)} output "
                   f"tensors: {repeat}", flush=True)
         return out
+
+
+def graph_row(prof: Profiler, cfg, fstate, x0, i0, u, flops) -> frame_graph.FrameGraph:
+    """The `FULL frame (graphs)` row: the probe frame through a `FrameGraph`,
+    set back to `fstate` before every call, at half the keyframe interval
+    after the state's last keyframe, so that the keyframe gate does not
+    pass (the frame is printed as a probe line)."""
+    ts = float(fstate.slam.odo.last_kf_time) + 0.5 * cfg.odometry.keyframe_time_interval
+    fg = frame_graph.FrameGraph(cfg, prof.dev, state=fstate)
+    prof.stage("FULL frame (graphs)", lambda fs, x, i: fg.step(x, i, ts, ground_u=u),
+               fstate, x0, i0, reset=lambda: fg.adopt(fstate), flops=flops)
+    fg.adopt(fstate)
+    info = fg.step(x0, i0, ts, ground_u=u)
+    print(f"  (graph-row probe at t={ts:.3f}: is_keyframe={bool(info.is_keyframe)}, "
+          f"skip={bool(info.skip)})")
+    return fg
 
 
 def _fmt(v, digits: int) -> str:
@@ -283,6 +322,13 @@ def main(argv=None) -> int:
     print(f"  (keyframe-branch probe: is_keyframe={is_kf})")
     prof.stage("fused_step (kf-gate frame)", lambda fs, x, i: fused.fused_step(
         fs, x, i, 9.0, mask, cfg, ground_u=u), fstate, x0, i0)
+    graph = None
+    if dev.type == "cuda":
+        # the non-keyframe frame as SlamSystem runs it (CUDA graphs)
+        eager = next(r for r in prof.rows if r["stage"] == "fused_step (non-keyframe)")
+        fg = graph_row(prof, cfg, fstate, x0, i0, u, eager["flops"])
+        graph = {"capture_s": fg.capture_s, "replays": dict(fg.replays)}
+        print(f"  (graphs: capture s {fg.capture_s}, replays {dict(fg.replays)})")
 
     print(f"\n| Stage | host ms | device us | kernels | busy | operand MB | counted MFLOP "
           f"| bound us | bound by | bound / host | card |")
@@ -301,7 +347,8 @@ def main(argv=None) -> int:
            "peaks": prof.peaks._asdict() if prof.peaks else NOT_MEASURED,
            "flops_counted": "FlopCounterMode: matmul-class aten ops only",
            "non_keyframe_probe_is_keyframe": non_kf_is_kf,
-           "kf_gate_probe_is_keyframe": is_kf, "rows": prof.rows}
+           "kf_gate_probe_is_keyframe": is_kf, "graphs": graph or NOT_MEASURED,
+           "rows": prof.rows}
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
     print(f"results -> {args.out}")
