@@ -55,16 +55,22 @@ Phases (any failure exits non-zero before the result lines are printed):
    run of the eager `fused_step`: a synchronize cannot be captured);
 6b. graph: the compiled frame (`pipeline/frame_graph.py`: `SlamSystem`'s
    non-keyframe frame as up to four replayed CUDA graphs over a state
-   updated in place).  First the Jacobi eigensolver (`ops/eigsym.py`)
-   against `torch.linalg.eigh`/`eigvalsh` at its three call sites' shapes,
-   on the matrices the eager step hands it on the slice's first two frames
-   (the RANSAC refit's 3x3 covariances, `fit_lines`' (Q, 3, 3) batch, the
-   solves' 6x6 Hessians) and on random SPD matrices of those shapes:
-   eigenvalues within 1e-5 of the largest |eigenvalue|, eigenvectors with
-   |dot| >= 1 - 1e-4 where the eigengap is above 1e-3 of it; its times by
-   CUDA events beside its bound, its plain version's and
-   `torch.linalg.eigh`'s.  Then the slice at full width through
-   `SlamSystem` (a timed run, a run with host syncs counted, and the first
+   updated in place).  First the Jacobi eigensolver kernels
+   (`ops/eigsym.py`) against `torch.linalg.eigh`/`eigvalsh` at their three
+   call sites' shapes, on the matrices the eager step hands them on the
+   slice's first two frames (the RANSAC refit's 3x3 covariances,
+   `fit_lines`' (Q, 3, 3) batch, the solves' 6x6 Hessians), on random SPD
+   matrices of those shapes and on adversarial 3x3 and 6x6 ones in float32
+   and float64 (repeated eigenvalues, diagonal, off diagonal by 1e-30,
+   graded over 12 decades, zero: zeros out): eigenvalues within 1e-5 of
+   the largest |eigenvalue|, eigenvectors with |dot| >= 1 - 1e-4 where the
+   eigengap is above 1e-3 of it, every output finite; a frame matrix's
+   bits the same alone and at three places in a batch of 1024 others (and
+   of 8192 for the 3x3, of 8 for the 6x6), and over ten launches; their times by CUDA events and
+   device-side at one 6x6, (Q, 3, 3) and one 3x3, beside a one-element
+   `Tensor.zero_()`'s device time (the launch floor), their bound, their
+   plain version's and `torch.linalg.eigh`'s.  Then the slice at full
+   width through `SlamSystem` (a timed run, a run with host syncs counted, and the first
    12 frames or so again with six non-keyframe frames traced by
    `torch.profiler`: a trace costs seconds) against two runs of the eager
    `fused_step` loop: the same keyframes, skips and loop, positions within
@@ -196,8 +202,9 @@ The line before the last is the per-kernel JSON record; the last line is
 
     python3 chip_smoke.py --phase NAME
 
-with NAME one of kernel, grid, small, fallback, slice, graph, stream-small,
-checkpoint, geoslam, stream, refine, tools, measure, multisession
+with NAME one of kernel, grid, small, fallback, slice, graph, eig (the
+graph phase's eigensolver part), stream-small, checkpoint, geoslam, stream,
+refine, tools, measure, multisession
 
 builds the kernels and runs that one phase alone (no result lines; refine
 runs the stream phase first, for its keyframe store).
@@ -501,13 +508,14 @@ def time_cuda_batch(fn, n: int, reps=20, warmup=3) -> float:
                      warmup=warmup) / n
 
 
-def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3,
+def kernel_device_us(fn, name: str | None, n: int = 33, traces: int = 3,
                      min_seen: int | None = None) -> float:
     """Median device-side duration in microseconds of the kernel `name`
-    over `n` calls of `fn`, from a `torch.profiler` trace that saw at least
-    `min_seen` (by default all `n`) of the launches.  CUPTI now and then
-    drops a launch from a trace (32 of 33 seen; the eigensolver's 30 of 33
-    in every trace of a whole run), so up to `traces` traces are taken."""
+    (None: every device operation) over `n` calls of `fn`, from a
+    `torch.profiler` trace that saw at least `min_seen` (by default all
+    `n`) of the launches.  CUPTI now and then drops a launch from a trace
+    (32 of 33 seen; the eigensolver's 30 of 33 in every trace of a whole
+    run), so up to `traces` traces are taken."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -518,7 +526,7 @@ def kernel_device_us(fn, name: str, n: int = 33, traces: int = 3,
                 fn()
             torch.cuda.synchronize()
         durs = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type.name == "CUDA" and name in e.name]
+                if e.device_type.name == "CUDA" and (name is None or name in e.name)]
         if len(durs) >= (min_seen or n):
             return statistics.median(durs)
         seen.append(len(durs))
@@ -2128,6 +2136,31 @@ def recorded_inputs(mod, name: str):
             fn.launches = recording.launches
 
 
+def random_spd(batch: int, n: int, decades: float, g: torch.Generator) -> torch.Tensor:
+    """(batch, n, n) float64 SPD matrices, eigenvalues spread over `decades`."""
+    q, _ = torch.linalg.qr(torch.randn(batch, n, n, generator=g, dtype=torch.float64))
+    lam = 10.0 ** (decades * torch.rand(batch, n, generator=g, dtype=torch.float64)
+                   - decades / 2)
+    return q @ torch.diag_embed(lam) @ q.transpose(-1, -2)
+
+
+def eig_adversarial(n: int) -> dict:
+    """float64 (n, n) matrices that a Jacobi method can trip on: repeated
+    eigenvalues (2 I; a rank-1 plus 3 I), a diagonal matrix, a diagonal one
+    off diagonal by 1e-30, an off-diagonal-only 1e-30 matrix, a graded
+    matrix whose entries span 12 decades, an all-zero matrix."""
+    f64 = dict(dtype=torch.float64)
+    u = torch.randn(n, generator=torch.Generator().manual_seed(11), **f64)
+    eye = torch.eye(n, **f64)
+    d = torch.diag(torch.arange(1.0, n + 1.0, **f64))
+    off = 1e-30 * (torch.ones(n, n, **f64) - eye)
+    scale = torch.diag(10.0 ** torch.linspace(-3.0, 3.0, n, **f64))
+    return {"2I": 2.0 * eye, "rank-1 + 3I": torch.outer(u, u) + 3.0 * eye,
+            "diagonal": d, "diagonal + 1e-30": d + off, "1e-30 off diagonal": off,
+            "graded 12 decades": scale @ (eye + 0.3 / n) @ scale,
+            "zero": torch.zeros(n, n, **f64)}
+
+
 def eig_sites(dev) -> dict:
     """The eigensolver's inputs at its three call sites, from the eager step
     over the slice's first two frames at full width (the RANSAC refit's 3x3
@@ -2142,20 +2175,17 @@ def eig_sites(dev) -> dict:
     with recorded_inputs(eigsym, "eigh") as e3, recorded_inputs(eigsym, "eigvalsh") as e6:
         run_fused(cfg, xyz, inten, dev)
     g = torch.Generator().manual_seed(10)
-
-    def spd(batch, n, decades):
-        q, _ = torch.linalg.qr(torch.randn(batch, n, n, generator=g, dtype=torch.float64))
-        lam = 10.0 ** (decades * torch.rand(batch, n, generator=g, dtype=torch.float64)
-                       - decades / 2)
-        return (q @ torch.diag_embed(lam) @ q.transpose(-1, -2)).float().to(dev)
-
+    spd = lambda batch, n, decades: random_spd(batch, n, decades, g).float().to(dev)
     ground = torch.stack([a for a in e3 if a.dim() == 2])
     lines = [a for a in e3 if a.dim() == 3]
     check(len(ground) >= 3 and lines and e6, f"eigensolver calls: {len(ground)} ground, "
           f"{len(lines)} fit_lines, {len(e6)} solver")
-    return {"ground (3, 3)": (ground, spd(256, 3, 8.0), True),
-            "fit_lines (Q, 3, 3)": (lines[-1], spd(lines[-1].shape[0], 3, 8.0), True),
-            "solver (6, 6)": (torch.stack(e6), spd(256, 6, 12.0), False)}
+    sites = {"ground (3, 3)": (ground, spd(256, 3, 8.0), True),
+             "fit_lines (Q, 3, 3)": (lines[-1], spd(lines[-1].shape[0], 3, 8.0), True),
+             "solver (6, 6)": (torch.stack(e6), spd(256, 6, 12.0), False)}
+    print("eigensolver inputs on the frame: " + ", ".join(
+        f"{site} x{len(a)} {a.dtype}" for site, (a, _, _) in sites.items()))
+    return sites
 
 
 def eig_errors(a: torch.Tensor, vectors: bool) -> tuple[float, float, float]:
@@ -2218,24 +2248,81 @@ def eig_bound_ms(a: torch.Tensor, vectors: bool) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def eig_outputs(a: torch.Tensor, vectors: bool) -> tuple:
+    return eigsym.eigh(a) if vectors else (eigsym.eigvalsh(a),)
+
+
+def same_bits(x: tuple, y: tuple) -> bool:
+    """Equal bit for bit (-0.0 and 0.0 apart, NaNs compared by pattern)."""
+    view = lambda t: t.contiguous().view(torch.int64 if t.dtype == torch.float64
+                                         else torch.int32)
+    return all(torch.equal(view(p), view(q)) for p, q in zip(x, y))
+
+
+def eig_invariance(sites: dict) -> None:
+    """Batch invariance and repeat equality, bit for bit: one matrix of the
+    frame alone and at three places in a batch of random SPD others (1024
+    for both kernels; 8192 for the 3x3, the batched sessions' line fit,
+    which packs 8 matrices a warp; 8 for the 6x6, their solve), and ten
+    launches on one input."""
+    g = torch.Generator().manual_seed(12)
+    cases = (("ground (3, 3)", 0, 1024), ("ground (3, 3)", 0, 8192),
+             ("solver (6, 6)", -1, 1024), ("solver (6, 6)", -1, 8))
+    for site, k, batch in cases:
+        one = sites[site][0][k][None].contiguous()
+        vectors = sites[site][2]
+        others = random_spd(batch, one.shape[-1], 8.0, g).to(one)
+        alone = eig_outputs(one, vectors)
+        places = (0, batch // 2, batch)
+        inside = [same_bits(tuple(x[p:p + 1] for x in eig_outputs(
+            torch.cat([others[:p], one, others[p:]]), vectors)), alone) for p in places]
+        first = eig_outputs(others, vectors)
+        repeats = [same_bits(eig_outputs(others, vectors), first) for _ in range(10)]
+        print(f"  {site} batch invariance: one frame matrix alone against at {places} "
+              f"of {batch + 1}: bit-equal {inside}; ten launches on {batch}: "
+              f"bit-equal {all(repeats)}")
+        check(all(inside), f"eigensolver {site}: a matrix's bits depend on its batch")
+        check(all(repeats), f"eigensolver {site}: launches on one input differ")
+
+
 def eig_kernel_phase(dev) -> dict:
-    """The Jacobi kernel against `torch.linalg.eigh`/`eigvalsh` at the three
-    call sites' shapes on the frame's and on random SPD matrices, then its
-    times (CUDA events; device-side from `torch.profiler`) beside its bound,
-    its plain version's and `torch.linalg.eigh`'s."""
+    """The Jacobi kernels against `torch.linalg.eigh`/`eigvalsh` at the
+    three call sites' shapes on the frame's, on random SPD and on
+    adversarial matrices (float32 and float64), their batch invariance and
+    repeat equality, then their times (CUDA events; device-side from
+    `torch.profiler`, beside a one-element fill's, the launch floor) beside
+    their bound, their plain version's and `torch.linalg.eigh`'s."""
     sites = eig_sites(dev)
     worst = {"eigh": [0.0, 0.0, 0.0], "eigvalsh": [0.0, 0.0, 0.0]}
+
+    def held(site, what, a, vectors):
+        rel, err, vec = eig_errors(a, vectors)
+        key = "eigh" if vectors else "eigvalsh"
+        worst[key] = [max(x, y) for x, y in zip(worst[key], (rel, err, vec))]
+        print(f"eigensolver {site}, {what} x{a.numel() // a.shape[-1] ** 2}: "
+              f"eigenvalue error {rel:.3g} of the largest (bar {EIG_VAL_TOL}), "
+              f"{err:.3g} absolute; eigenvector 1 - |dot| {vec:.3g} "
+              f"(bar {EIG_VEC_TOL})")
+        check(rel <= EIG_VAL_TOL, f"eigensolver {site} ({what}): eigenvalues {rel:.3g} off")
+        check(vec <= EIG_VEC_TOL, f"eigensolver {site} ({what}): eigenvectors {vec:.3g} off")
+
     for site, (frame_a, rand_a, vectors) in sites.items():
         for what, a in (("frame", frame_a), ("random SPD", rand_a)):
-            rel, err, vec = eig_errors(a, vectors)
-            key = "eigh" if vectors else "eigvalsh"
-            worst[key] = [max(x, y) for x, y in zip(worst[key], (rel, err, vec))]
-            print(f"eigensolver {site}, {what} x{a.numel() // a.shape[-1] ** 2}: "
-                  f"eigenvalue error {rel:.3g} of the largest (bar {EIG_VAL_TOL}), "
-                  f"{err:.3g} absolute; eigenvector 1 - |dot| {vec:.3g} "
-                  f"(bar {EIG_VEC_TOL})")
-            check(rel <= EIG_VAL_TOL, f"eigensolver {site} ({what}): eigenvalues {rel:.3g} off")
-            check(vec <= EIG_VEC_TOL, f"eigensolver {site} ({what}): eigenvectors {vec:.3g} off")
+            held(site, what, a, vectors)
+    for n, vectors in ((3, True), (6, False)):
+        sets = eig_adversarial(n)
+        for dtype in (torch.float32, torch.float64):
+            a = torch.stack(list(sets.values())).to(dtype=dtype, device=dev)
+            held(f"({n}, {n})", f"adversarial {list(sets)} {dtype}", a, vectors)
+            out = eig_outputs(a, vectors)
+            finite = all(bool(torch.isfinite(x).all()) for x in out)
+            zero = out[0][list(sets).index("zero")]
+            print(f"  finite {finite}; the zero matrix's eigenvalues {zero.tolist()}")
+            check(finite and bool((zero == 0).all()),
+                  f"eigensolver ({n}, {n}) {dtype}: non-finite output or zero matrix not 0")
+    eig_invariance(sites)
+    z = torch.zeros(1, device=dev)
+    floor_us = kernel_device_us(z.zero_, None, min_seen=16)
     rec = {}
     timed = (("eigh", "fit_lines (Q, 3, 3)", eigsym.eigh, eigsym.eigh_plain,
               torch.linalg.eigh), ("eigvalsh", "solver (6, 6)", eigsym.eigvalsh,
@@ -2248,16 +2335,32 @@ def eig_kernel_phase(dev) -> dict:
         lib_ms = time_cuda(lambda: lib(a))
         device_us = kernel_device_us(lambda: kern(a), "jacobi_kernel", min_seen=16)
         bound, bound_by = eig_bound_ms(a, key == "eigh")
-        ground_ms = (time_cuda(lambda: kern(sites["ground (3, 3)"][0][0]))
-                     if key == "eigh" else None)
-        print(f"  {key} kernel at {site} {tuple(a.shape)}: {ms:.4f} ms (device-side "
-              f"{device_us:.2f} us), plain {plain_ms:.4f} ms, torch.linalg.{lib.__name__} "
-              f"{lib_ms:.4f} ms, bound {bound:.6f} ms ({bound_by})"
-              + (f"; at one 3x3 (ground) {ground_ms:.4f} ms" if ground_ms else ""))
         rec[key] = dict(max_abs_err=worst[key][1], ms=ms, plain_ms=plain_ms,
                         library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
-                        device_ms=device_us / 1e3, shape=list(a.shape),
+                        device_ms=device_us / 1e3, floor_ms=floor_us / 1e3,
+                        shape=list(a.shape), dtype=str(a.dtype),
                         max_rel_err=worst[key][0], max_vec_err=worst[key][2])
+        print(f"  {key} kernel at {site} {tuple(a.shape)} {a.dtype}: {ms:.4f} ms "
+              f"(device-side {device_us:.2f} us; launch floor, a one-element "
+              f"Tensor.zero_(), {floor_us:.2f} us), plain {plain_ms:.4f} ms, "
+              f"torch.linalg.{lib.__name__} {lib_ms:.4f} ms, bound {bound:.8f} ms "
+              f"({bound_by})")
+        if key == "eigh":
+            # the ground refit's single 3x3
+            one = sites["ground (3, 3)"][0][0].contiguous()
+            one_ms = time_cuda(lambda: kern(one))
+            one_us = kernel_device_us(lambda: kern(one), "jacobi_kernel", min_seen=16)
+            one_bound, one_by = eig_bound_ms(one, True)
+            # the batch with every lane of a warp on the same matrix: what the
+            # batch costs beyond one matrix's chain when lanes differ
+            same = a[:1].expand(a.shape).contiguous()
+            same_us = kernel_device_us(lambda: kern(same), "jacobi_kernel", min_seen=16)
+            rec[key].update(one_ms=one_ms, one_device_ms=one_us / 1e3, one_bound_ms=one_bound,
+                            same_device_ms=same_us / 1e3)
+            print(f"  eigh kernel at one 3x3 (ground): {one_ms:.4f} ms (device-side "
+                  f"{one_us:.2f} us), bound {one_bound:.8f} ms ({one_by}); at "
+                  f"{tuple(a.shape)} of one fit_lines matrix repeated: device-side "
+                  f"{same_us:.2f} us")
     return rec
 
 
@@ -2484,6 +2587,7 @@ def main() -> int:
                   "fallback": lambda: fallback_phase(dev),
                   "slice": lambda: slice_phase(dev),
                   "graph": lambda: graph_phase(dev),
+                  "eig": lambda: eig_kernel_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),
                   "checkpoint": lambda: checkpoint_phase(dev),
                   "geoslam": lambda: geoslam_phase(dev),

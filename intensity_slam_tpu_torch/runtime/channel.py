@@ -23,6 +23,7 @@ class Channel:
         self.dtype = np.dtype(dtype)
         self._lib = native.lib()
         self._h = self._lib.ischan_create(capacity, self.dtype.itemsize)
+        self.closed = False
 
     def push(self, record: np.ndarray, drop_oldest: bool = False) -> bool:
         """Returns False iff the channel was full (and drop_oldest=False).
@@ -51,6 +52,7 @@ class Channel:
     def close(self) -> None:
         if self._h:
             self._lib.ischan_close(self._h)
+            self.closed = True
 
     def destroy(self) -> None:
         if self._h:

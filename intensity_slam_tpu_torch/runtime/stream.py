@@ -149,7 +149,7 @@ class StreamingRunner:
         self._chan = Channel(queue_capacity, _REC_DTYPE)
         self._drop = drop_policy
         self._slots: dict[int, tuple] = {}
-        self._slots_mu = threading.Lock()
+        self._slots_cv = threading.Condition()
         self._dropped_writes = 0
         # unbounded corrected-trajectory export: segments stream to the
         # host before the device ring wraps (see runtime.spill)
@@ -180,17 +180,25 @@ class StreamingRunner:
         return self.graph.state
 
     # ---- pose-writer stream (async device->host readback + file IO) -------
+    # The channel is FIFO and `drop_oldest` evicts its head, so it always
+    # holds the newest `len(channel)` records pushed and not yet popped.
+    # The dispatch thread pushes and prunes, and the writer pops and claims
+    # a record's slot, each under `_slots_cv`: a popped record always finds
+    # its slot, and a slot older than the channel's contents belongs to a
+    # record the channel dropped (counted in its `dropped`).
     def _writer_loop(self) -> None:
         while True:
-            rec = self._chan.pop(timeout_ms=-1)
-            if rec is None or int(rec["slot"]) < 0:
-                return
-            slot = int(rec["slot"])
-            with self._slots_mu:
-                entry = self._slots.pop(slot, None)
-            if entry is None:   # pruned by the dispatch thread (see run())
-                continue
-            t_host, done = entry
+            with self._slots_cv:
+                rec = self._chan.pop(timeout_ms=0)
+                while rec is None:
+                    if self._chan.closed:       # closed and drained
+                        return
+                    self._slots_cv.wait()
+                    rec = self._chan.pop(timeout_ms=0)
+                slot = int(rec["slot"])
+                if slot < 0:                    # end of stream
+                    return
+                t_host, done = self._slots.pop(slot)
             if done is not None:
                 done.synchronize()      # this frame's copy, on this thread
             self._traj.append(float(rec["timestamp"]), t_host.numpy(), _IDENT_Q)
@@ -208,24 +216,17 @@ class StreamingRunner:
             done.record()
         else:
             t_host, done = info.pose_t, None
-        with self._slots_mu:
-            self._slots[idx] = (t_host, done)
         rec = np.array((idx, abs_ts), _REC_DTYPE)
-        if not self._chan.push(rec, drop_oldest=self._drop):
-            self._dropped_writes += 1
-            with self._slots_mu:
-                self._slots.pop(idx, None)
-        elif self._drop:
-            # drop_oldest may have evicted a record INSIDE the channel; its
-            # slot entry would otherwise pin its host buffer forever.  Frame
-            # indices are monotonic, so anything older than the channel
-            # capacity is either consumed or dropped: prune it.  2x slack
-            # keeps the prune clear of a record the writer popped from the
-            # channel but hasn't claimed from _slots yet.
-            floor = idx - 2 * self._cap
-            with self._slots_mu:
-                for k in [k for k in self._slots if k < floor]:
-                    self._slots.pop(k, None)
+        with self._slots_cv:
+            if not self._chan.push(rec, drop_oldest=self._drop):
+                self._dropped_writes += 1
+                return
+            self._slots[idx] = (t_host, done)
+            # the slots of records `drop_oldest` evicted: all but the newest
+            # len(channel) unclaimed ones (none without the drop policy)
+            for k in list(self._slots)[:len(self._slots) - len(self._chan)]:
+                del self._slots[k]
+            self._slots_cv.notify()
 
     def _open_writer(self):
         # a closed channel/writer cannot be reopened: each run starts with
@@ -243,11 +244,13 @@ class StreamingRunner:
 
     def _close_writer(self, th) -> None:
         if self._traj:
-            self._chan.push(_END, drop_oldest=True)
+            with self._slots_cv:
+                self._chan.push(_END, drop_oldest=True)
+                self._slots_cv.notify()
             th.join()
             self._traj.close()
         self._chan.close()
-        with self._slots_mu:        # entries of records the channel dropped
+        with self._slots_cv:        # entries of records the channel dropped
             self._slots.clear()
 
     def _drive(self, frames, ground_u, on_frame) -> None:

@@ -16,7 +16,8 @@ TOOLS = ("torch_nn_tune", "torch_refine_draws", "torch_replay", "torch_bag2islog
          "torch_visualize", "torch_os0_eval", "torch_loop_eval", "torch_refine_eval",
          "torch_soak", "torch_capacity_sensitivity", "torch_bench_full", "torch_stream_probe",
          "torch_slope_probe", "torch_profile_stages", "torch_multiproc_product",
-         "torch_scaling_bench", "torch_scaling_projection", "torch_scaling_multisession")
+         "torch_scaling_bench", "torch_scaling_projection", "torch_scaling_multisession",
+         "torch_eig_tune")
 FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
     ROOT / "tools" / f"{name}.py" for name in TOOLS]

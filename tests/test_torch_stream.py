@@ -218,3 +218,43 @@ def test_drop_oldest_leaves_no_slot_pinned(runs, tmp_path, monkeypatch):
     ts, pos = _tum(tmp_path / "slow.tum")
     assert len(ts) == 60 - dropped
     assert pos[-1, 0] == 59.0                    # the newest frame is written
+
+
+def test_writer_claims_every_record_it_pops(runs, tmp_path, monkeypatch):
+    """The writer stalls 5 ms between popping a record and claiming its
+    slot while the dispatch loop runs ahead of it, with a writer slower
+    still: every record is written or counted as dropped, the slot table
+    stays bounded by twice the capacity while the run lasts, and nothing is
+    left in it after the run."""
+
+    class SlowWriter(TS.TrajectoryWriter):
+        def append(self, *a):
+            time.sleep(0.02)
+            super().append(*a)
+
+    pop = TS.Channel.pop
+
+    def stalling_pop(self, timeout_ms=-1):
+        rec = pop(self, timeout_ms)
+        if rec is not None:
+            time.sleep(0.005)
+        return rec
+
+    monkeypatch.setattr(TS, "TrajectoryWriter", SlowWriter)
+    monkeypatch.setattr(TS.Channel, "pop", stalling_pop)
+    cap, frames = 2, 60
+    tr = TS.StreamingRunner(runs["tcfg"], traj_path=str(tmp_path / "stall.tum"),
+                            queue_capacity=cap, device="cpu")
+    th = tr._open_writer()
+    most = 0
+    for idx in range(frames):
+        info = TF.FrameInfo(*([torch.zeros(())] * 9), pose_t=torch.tensor([idx, 0.0, 0.0]))
+        tr._record_pose(idx, 0.1 * idx, info)
+        most = max(most, len(tr._slots))
+    tr._close_writer(th)
+    assert not th.is_alive()
+    ts, pos = _tum(tmp_path / "stall.tum")
+    dropped = tr._stats()["dropped_pose_writes"]
+    assert dropped > 0 and len(ts) + dropped == frames
+    assert most <= 2 * cap + 1 and tr._slots == {}
+    assert pos[-1, 0] == frames - 1.0            # the newest frame is written
