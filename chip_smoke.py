@@ -97,9 +97,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    uninterrupted card run, and from a file the CPU wrote against the
    uninterrupted CPU run; the same decisions, log ids and skips;
 9. geoslam: `geometric_slam.run_sequence` (A-LOAM odometry + laser
-   mapping on unorganized scans) at full width over a 16-frame corridor
-   rendered on the card and permuted per frame: ATE and end error under a
-   quarter of the motion (tests/test_geometric_slam.py's bound), ms per step;
+   mapping on unorganized scans; one replay a step of
+   `geometric_slam.GeoStepGraph`'s captured step after the first) at full
+   width over a 16-frame corridor rendered on the card and permuted per
+   frame, against two runs of the eager `geo_slam_step` loop: ATE and end
+   error under a quarter of the motion (tests/test_geometric_slam.py's
+   bound), the eager runs' residual counts on every frame, positions
+   within the eager runs' spread, and after the capture 0 host syncs and
+   one replay a step.  Printed: ms a step graphed and eager, device us a
+   step (`torch.profiler`, three steps), capture seconds, peak memory, the
+   eager stage rows.  Kernel launches are counted over `run_sequence`
+   (`geoslam`);
 10. stream: bench.py's 420-frame circuit (os0_64_config, circuit_world with
    its textureless span, circuit_trajectory at 0.4 m a frame) rendered on
    the card into a ~440 MB scan log in a temporary directory (deleted at
@@ -152,8 +160,9 @@ Phases (any failure exits non-zero before the result lines are printed):
    keyframes and equal final positions; 32 frames, cut from 64 to keep the
    phase under 150 s), `torch_slope_probe --frames 48`
    (the frame classes must sum to 47), `torch_profile_stages --reps 5`
-   (every one of the ten stages and the `FULL frame (graphs)` row must show
-   device time and a kernel count),
+   (every one of the ten stages and the two graphed rows, `FULL frame
+   (graphs)` and `geo_slam_step (graphs)`, must show device time and a
+   kernel count),
    `torch_scaling_bench --devices 1` (BA solve time against size),
    `torch_scaling_projection --reps 2` and `torch_multiproc_product` (one
    NCCL rank, product scale: 1024 nodes and 200 loop edges, the PGO and
@@ -163,32 +172,39 @@ Phases (any failure exits non-zero before the result lines are printed):
    candidate (a 32-frame corridor, the circuit's first lap), so the NN
    kernels launch 0 times there; the kernel phase holds them and the slice,
    stream, refine and tools paths launch them;
-14. multisession: the batched step (`slam.slam_step_batched`) at full
-   width (os0_64_config, 64x1024): B = 8 circuit streams of 24 frames,
-   stream b starting at frame b of one 31-frame render, stream 3 at
-   constant intensity (its intensity odometry skips every frame, so the
-   geometric fallback's sub-batch runs on the card).  Every session is held
-   against an unbatched `slam_step` run of its stream with the same draws
-   (its generator's seed): `skip`, `is_keyframe`, `num_good`, `ground_ok`
-   and the host flags equal on every frame, the odometry pose within 1e-4
-   m and the scan-to-map pose within 0.1 m (the largest differences
-   printed).  The batch sums some products in another order than one
-   session does (a batched matrix product, reduction or factorization
-   against a single one), and the scan-to-map solve amplifies a rounding
-   difference as it does an input's (ROADMAP C.7: one float32 rounding
-   step of the input moves it 0.16-0.40 m over a longer run).  Then 8 copies of stream 0 from
-   one seed against one (B = 1) and against the unbatched step, 6 frames:
-   host syncs by call site equal at B = 1, at B = 8 and unbatched at every
-   site but the solver's loop test, and there one a loop test (a batched
-   solve tests as long as its slowest session; rounding decides a solve's
-   last iterations, so the counts of iterations may differ between the
-   three); the device kernels of the sixth step printed by name, B = 8
-   against B = 1, and held under 1.5 times B = 1's (a loop over the
-   sessions would launch 8 times as many).  Printed, not
-   held: ms per step and total scans/s at B = 1 and 8, peak memory.  Then
-   `tools/torch_scaling_multisession.py --batches 1,8 --frames 12 --warm 4`.
-   Kernel launches are counted over the B = 8 run (`multisession`): the
-   step reaches no loop candidate, so the NN kernels launch 0 times.
+14. multisession: the batched step at full width (os0_64_config, 64x1024)
+   through `frame_graph.BatchedStepGraph` (its `front`, `fallback` and
+   `back` replayed from CUDA graphs, the (3, B) flags read between):
+   B = 8 circuit streams of 24 frames, stream b starting at frame b of one
+   31-frame render, stream 3 at constant intensity (its intensity odometry
+   skips every frame, so the geometric fallback, solved on all 8 sessions
+   and kept for stream 3, is captured and replayed).  Every session is
+   held against an unbatched `slam_step` run of its stream with the same
+   draws (its generator's seed): `skip`, `is_keyframe`, `num_good`,
+   `ground_ok` and the host flags equal on every frame, the odometry pose
+   within 1e-4 m and the scan-to-map pose within 0.1 m (the largest
+   differences printed).  The batch sums some products in another order
+   than one session does (a batched matrix product, reduction or
+   factorization against a single one), and the scan-to-map solve
+   amplifies a rounding difference as it does an input's (ROADMAP C.7:
+   one float32 rounding step of the input moves it 0.16-0.40 m over a
+   longer run).  After every capture each step makes exactly one host sync
+   (the flags read) and 2-3 replays.  Then 8 copies of stream 0 from one
+   seed against one (B = 1) and against the unbatched step, 6 frames, with
+   the eager `slam.slam_step_batched`: host syncs by call site equal at
+   B = 1, at B = 8 and unbatched at every site but the solver's loop test,
+   and there one a loop test (a batched solve tests as long as its slowest
+   session; rounding decides a solve's last iterations, so the counts of
+   iterations may differ between the three); the device kernels of the
+   sixth step printed by name, B = 8 against B = 1, and held under 1.5
+   times B = 1's (a loop over the sessions would launch 8 times as many);
+   and through the graphs: one host sync a step, no solver loop test.
+   Printed, not held: ms a step, total scans/s and the busy share of a
+   traced step at B = 1 and 8, eager and graphed, peak memory.  Then
+   `tools/torch_scaling_multisession.py --batches 1,8 --frames 12 --warm 4`
+   (graphed, its eager rows beside).  Kernel launches are counted over the
+   graphed staggered B = 8 run (`multisession`): the step reaches no loop
+   candidate, so the NN kernels launch 0 times.
 
 Every frame runs the fused step (through `FrameGraph` wherever a phase uses
 `SlamSystem` or `StreamingRunner`): `slam_step` (intensity odometry,
@@ -1343,12 +1359,14 @@ def checkpoint_phase(dev) -> None:
         check(dt < 0.1, f"checkpoint {name}: the resumed log is {dt:.3f} m off")
 
 
-def geoslam_phase(dev) -> None:
-    """`geometric_slam.run_sequence` at full width (SlamConfig() defaults,
-    64x1024) over a 16-frame corridor rendered on the card and permuted per
-    frame (tests/test_geometric_slam.py:25-45), held to that test's bound."""
-    cfg = config.SlamConfig()
-    T = 16
+GEO_FRAMES = 16
+GEO_TRACED = 3           # steps traced by torch.profiler, eager and graphed
+
+
+def geo_scans(dev, cfg, T: int):
+    """A T-frame corridor rendered on the card and permuted per frame
+    (tests/test_geometric_slam.py:25-45): the scans and the positions
+    relative to the first frame."""
     traj = synthetic.corridor_trajectory(T, speed=0.3, yaw_rate=0.01, device=dev)
     xyz, inten = synthetic.render_sequence(traj, synthetic.corridor_world(device=dev),
                                            cfg.sensor)
@@ -1357,39 +1375,128 @@ def geoslam_phase(dev) -> None:
                          for _ in range(T)])
     xyz_u = torch.gather(xyz, 1, perms[..., None].expand(-1, -1, 3))
     inten_u = torch.gather(inten, 1, perms)
-    gt = (traj.t - traj.t[0]).cpu()             # the first pose has no rotation
-    with sync_counter(True) as sites:           # also the warm-up
-        geometric_slam.run_sequence(xyz_u, inten_u, cfg)
-    _sync_untracked(dev)
+    return xyz_u, inten_u, (traj.t - traj.t[0]).cpu()     # the first pose has no rotation
+
+
+def run_geo(cfg, xyz, inten, dev, graph: bool, syncs=False, traced=()) -> dict:
+    """The A-LOAM steps over a sequence, each synchronized: the eager
+    `geo_slam_step` loop, or `GeoStepGraph` (one replay a step after the
+    first); per step its host ms, with `syncs` its host syncs by call site,
+    for the steps `traced` its device us from a `torch.profiler` trace, and
+    whether it replayed.  The outputs are read after the run."""
+    g = geometric_slam.GeoStepGraph(cfg, dev) if graph else None
+    st = None if graph else geometric_slam.init_state(cfg, device=dev)
+    outs, rows = [], []
+    for k in range(xyz.shape[0]):
+        replays = sum(g.replays.values()) if graph else 0
+        with sync_counter(syncs) as sites, frame_trace(k in traced, host=False) as tr:
+            _sync_untracked(dev)
+            t0 = time.perf_counter()
+            if graph:
+                out = g.step(xyz[k], inten[k])
+            else:
+                st, out = geometric_slam.geo_slam_step(st, xyz[k], inten[k], cfg)
+            _sync_untracked(dev)
+            dt = time.perf_counter() - t0
+        outs.append(out)
+        rows.append(dict(ms=1e3 * dt, sites=collections.Counter(sites), **tr,
+                         replays=(sum(g.replays.values()) - replays) if graph else 0))
+    return dict(graph=g, rows=rows,
+                pose_t=torch.stack([o.pose.t for o in outs]).cpu(),
+                corner=[int(o.num_corner_residuals) for o in outs],
+                surf=[int(o.num_surf_residuals) for o in outs])
+
+
+def geoslam_phase(dev) -> dict:
+    """The A-LOAM path at full width (SlamConfig() defaults, 64x1024) over a
+    16-frame unorganized corridor: `geometric_slam.run_sequence` (replayed
+    from `GeoStepGraph`'s graph) held to tests/test_geometric_slam.py's
+    bound and against two runs of the eager `geo_slam_step` loop; host syncs
+    and replays a graphed step; times graphed and eager."""
+    t_phase = time.perf_counter()
+    cfg = config.SlamConfig()
+    T = GEO_FRAMES
+    xyz_u, inten_u, gt = geo_scans(dev, cfg, T)
+    traced = set(range(T - GEO_TRACED, T))
+    e1 = run_geo(cfg, xyz_u, inten_u, dev, graph=False, syncs=True)   # also the warm-up
+    e2 = run_geo(cfg, xyz_u, inten_u, dev, graph=False, traced=traced)
+    # the user's entry point, its kernels' launches counted (`geoslam`)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
     t0 = time.perf_counter()
     outs = geometric_slam.run_sequence(xyz_u, inten_u, cfg)
     _sync_untracked(dev)
     wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    ga = run_geo(cfg, xyz_u, inten_u, dev, graph=True, syncs=True)
+    g2 = run_geo(cfg, xyz_u, inten_u, dev, graph=True, traced=traced)
     with stage_timers([(geometric_slam, "geo_slam_step"),
                        (geometric_slam.geometric, "geometric_delta"),
                        (geometric_slam.laser_mapping, "laser_mapping_step"),
                        (geometric_slam.curvature, "extract_features")]) as stage:
-        geometric_slam.run_sequence(xyz_u, inten_u, cfg)
+        run_geo(cfg, xyz_u, inten_u, dev, graph=False)
     est = outs.pose.t.cpu()
     odo = outs.odom_pose.t.cpu()
     err = torch.linalg.norm(est - gt, dim=-1)
     ate = float(torch.sqrt(torch.mean(err ** 2)))
     motion = float(torch.linalg.norm(gt[-1] - gt[0]))
     surf = [int(v) for v in outs.num_surf_residuals]
+    corner = [int(v) for v in outs.num_corner_residuals]
+    spread = float((e1["pose_t"] - e2["pose_t"]).abs().max())
+    diff = max(float((g - e).abs().max()) for g in (est, ga["pose_t"], g2["pose_t"])
+               for e in (e1["pose_t"], e2["pose_t"]))
+    same_counts = all(r["corner"] == e1["corner"] and r["surf"] == e1["surf"]
+                      for r in (e2, ga, g2)) and (corner, surf) == (e1["corner"], e1["surf"])
+    after = range(1, T)
+    g_syncs = [sum(ga["rows"][k]["sites"].values()) for k in after]
+    g_replays = [ga["rows"][k]["replays"] for k in after]
+    fg = ga["graph"]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
     print(f"geoslam (full width, {T} unorganized frames): ATE {ate:.4f} m, end error "
           f"{float(err[-1]):.4f} m, odometry end error "
           f"{float(torch.linalg.norm(odo[-1] - gt[-1])):.4f} m, over {motion:.2f} m of "
           f"motion (bound: 0.25 x motion = {0.25 * motion:.3f} m); converged "
           f"{[bool(c) for c in outs.converged]}; surf residuals {surf}; corner "
-          f"residuals {[int(v) for v in outs.num_corner_residuals]}")
-    print(f"  ms per geo_slam_step {1e3 * wall / T:.3f} (run_sequence, unsynchronized); "
-          f"host syncs {sum(sites.values()) / T:.2f} per step; each stage synchronized:")
+          f"residuals {corner}")
+    print(f"  ms per step (median of steps 1..{T - 1}, each synchronized): eager "
+          f"{med([e1['rows'][k]['ms'] for k in after]):.3f} and "
+          f"{med([e2['rows'][k]['ms'] for k in after]):.3f}, graphed "
+          f"{med([ga['rows'][k]['ms'] for k in after]):.3f} and "
+          f"{med([r['ms'] for r in g2['rows'][1:] if 'device_us' not in r]):.3f}; "
+          f"run_sequence {1e3 * wall / T:.3f} a step over all {T} (capture included, "
+          f"unsynchronized); {devices.describe('cuda')}")
+    print(f"  device us per step (median of steps {sorted(traced)}; torch.profiler): eager "
+          f"{med([e2['rows'][k]['device_us'] for k in traced]):.1f} in "
+          f"{med([e2['rows'][k]['device_kernels'] for k in traced]):.0f} device operations, "
+          f"graphed (the solves at their fixed iterations) "
+          f"{med([g2['rows'][k]['device_us'] for k in traced]):.1f} in "
+          f"{med([g2['rows'][k]['device_kernels'] for k in traced]):.0f}")
+    print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; replays "
+          f"{dict(fg.replays)}; host syncs a step: eager "
+          f"{sum(sum(r['sites'].values()) for r in e1['rows'][1:]) / (T - 1):.2f}, graphed "
+          f"after capture {g_syncs}; peak device memory of run_sequence {peak:.0f} MiB")
+    print(f"  positions: eager against eager {spread:.3g} m (the spread), graphed against "
+          f"eager {diff:.3g} m; residual counts equal to eager on every frame {same_counts}; "
+          f"kernel launches {launches}")
+    print("  eager steps, each stage synchronized:")
     print_stage_rows(sorted(stage.items(), key=lambda kv: -sum(kv[1])))
-    print_sync_sites(sites)
+    print_sync_sites(e1["rows"][1]["sites"])
     check(bool(torch.isfinite(est).all()), "geoslam: non-finite pose")
     check(surf[-1] > 10, "geoslam: the mapping back-end did not engage")
     check(motion > 2.0 and ate < 0.25 * motion, f"geoslam: ATE {ate:.3f} m")
     check(float(err[-1]) < 0.25 * motion, f"geoslam: end error {float(err[-1]):.3f} m")
+    check(same_counts, "geoslam: the graphed steps found other residual counts than eager")
+    check(diff <= spread, f"geoslam: positions {diff:.3g} m from the eager runs, whose "
+          f"spread is {spread:.3g} m")
+    check(all(n == 0 for n in g_syncs), f"geoslam: host syncs a graphed step {g_syncs}")
+    check(g_replays == [1] * (T - 1) and fg.replays["step"] == T - 1,
+          f"geoslam: replays a step {g_replays}, {dict(fg.replays)}")
+    check(launches["eigh"] > 0 and launches["eigvalsh"] > 0,
+          f"geoslam: the eigensolver kernels were not launched on the path: {launches}")
+    print(f"  geoslam phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches)
 
 
 # ---- slice 6: the distributed back-end (parallel/) and SlamSystem.refine ---
@@ -1888,7 +1995,7 @@ def measure_phase(dev) -> dict:
         print(f"measure: profile {r['stage']}: host {r['host_ms']:.3f} ms, device "
               f"{r['device_us']} us, {r['kernels']} kernels, bound {r['bound_us']} us "
               f"({r['bound_by']})")
-    check(len(rows) == 11 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
+    check(len(rows) == 12 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
                                   and isinstance(r["kernels"], int) and r["kernels"] > 0
                                   for r in rows),
           f"measure: profile rows without device time or kernels: {rows}")
@@ -1951,21 +2058,25 @@ def loop_tests(calls) -> int:
     return tests
 
 
-def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False):
+def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False, graphs=False):
     """Step the sessions `seeds` over (F, B, ...) streams with
-    `slam_step_batched`; returns the outputs and the steps' seconds, and
-    with `count` the host syncs by call site and the solver's loop tests
-    over every step but the first (whose constants come over to the card)
-    and the last, and the last step's device kernels by name (a
-    `torch.profiler` trace)."""
-    st = slam.init_batched_state(cfg, seeds, device=dev)
-    outs, secs = [], []
+    `slam_step_batched`, or with `graphs` through a `BatchedStepGraph`;
+    returns the outputs and the steps' seconds, and with `count` the host
+    syncs by call site and the solver's loop tests over every step but the
+    first (whose constants come over to the card, and which captures the
+    graphs) and the last, the last step's device kernels by name and its
+    device us (a `torch.profiler` trace), and the replays a step."""
+    g = frame_graph.BatchedStepGraph(cfg, seeds, dev) if graphs else None
+    st = None if graphs else slam.init_batched_state(cfg, seeds, device=dev)
+    outs, secs, replays = [], [], []
     F = xb.shape[0]
-    sites, kernels, tests = collections.Counter(), collections.Counter(), 0
+    sites, kernels, tests, by_step = collections.Counter(), collections.Counter(), 0, []
+    dev_us = None
     from torch.profiler import ProfilerActivity, profile
     for k in range(F):
         last = count and k == F - 1
         counted = count and 0 < k < F - 1
+        before = sum(g.replays.values()) if graphs else 0
         with contextlib.ExitStack() as stack:
             step_sites = stack.enter_context(sync_counter(counted))
             step_tests = stack.enter_context(solver_loop_tests())
@@ -1973,16 +2084,32 @@ def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False):
                     if last else None)
             _sync_untracked(dev)
             t0 = time.perf_counter()
-            st, out = slam.slam_step_batched(st, xb[k], ib[k], k * 0.1, mask, cfg)
+            if graphs:
+                out = g.step(xb[k], ib[k], k * 0.1)
+            else:
+                st, out = slam.slam_step_batched(st, xb[k], ib[k], k * 0.1, mask, cfg)
             _sync_untracked(dev)
-        secs.append(time.perf_counter() - t0)
+            secs.append(time.perf_counter() - t0)       # the trace's stop not included
+        replays.append(sum(g.replays.values()) - before if graphs else 0)
         outs.append(out)
         if counted:
             sites.update(step_sites)
+            by_step.append((k, collections.Counter(step_sites)))
             tests += loop_tests(step_tests)
         if last:
-            kernels.update(e.name for e in prof.events() if e.device_type.name == "CUDA")
-    return outs, secs, sites, tests, kernels
+            events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            kernels.update(e.name for e in events)
+            dev_us = sum(e.time_range.elapsed_us() for e in events)
+    return dict(outs=outs, secs=secs, sites=sites, by_step=by_step, tests=tests,
+                kernels=kernels, dev_us=dev_us, replays=replays, graph=g)
+
+
+def batched_read_line() -> int:
+    """The line of `BatchedStepGraph.step`'s flags read, as the sync counter
+    keys it."""
+    import inspect
+    lines, first = inspect.getsourcelines(frame_graph.BatchedStepGraph.step)
+    return first + next(i for i, ln in enumerate(lines) if ".tolist()" in ln)
 
 
 def solver_loop_line() -> int:
@@ -1994,9 +2121,11 @@ def solver_loop_line() -> int:
 
 
 def multisession_phase(dev) -> dict:
-    """The batched step at full width: 8 sessions held against their
-    unbatched runs, the host syncs and device kernels per step at B = 1 and
-    B = 8, then the scaling tool at reduced depth."""
+    """The batched step at full width through `BatchedStepGraph`: 8
+    sessions held against their unbatched runs; host syncs and replays a
+    graphed step; the eager batched step's host syncs and device kernels
+    per step at B = 1 and B = 8; graphed against eager; then the scaling
+    tool at reduced depth."""
     t_phase = time.perf_counter()
     cfg = config.os0_64_config()
     B, F = MS_SESSIONS, MS_FRAMES
@@ -2007,12 +2136,14 @@ def multisession_phase(dev) -> dict:
     ib = torch.stack([inten[b:b + F] for b in range(B)], 1).clone()
     ib[:, MS_FLAT] = 100.0
     mask = projection.detection_mask(cfg.sensor, device=dev)
+    flags_site = f"frame_graph.py:{batched_read_line()}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    outs, secs, *_ = _ms_run(cfg, xb, ib, range(B), mask, dev)
+    run = _ms_run(cfg, xb, ib, range(B), mask, dev, count=True, graphs=True)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
+    outs, secs, bg = run["outs"], run["secs"], run["graph"]
     skips = [[h.skip for h in o.host] for o in outs]
     check(all(s[MS_FLAT] for s in skips[1:]) and not all(all(s) for s in skips[1:]),
           f"multisession: the batch is not mixed (skips {skips})")
@@ -2031,22 +2162,38 @@ def multisession_phase(dev) -> dict:
             for name in worst:
                 d = float((getattr(o, name).t - getattr(bo, name).t[b]).abs().max())
                 worst[name] = max(worst[name], d)
-    print(f"multisession: {B} sessions x {F} frames at full width held against their "
-          f"unbatched runs: discrete outputs equal, largest odometry pose difference "
-          f"{worst['odom_pose']:.3g} m (bar {MS_POSE_TOL_M}), scan-to-map pose "
-          f"{worst['pose']:.3g} m (bar {MS_MAP_TOL_M}); fallback session skipped "
-          f"{sum(s[MS_FLAT] for s in skips)} of {F} frames", flush=True)
+    # after every capture (front and back at step 0, the fallback at step 1)
+    late = [(k, dict(c)) for k, c in run["by_step"] if k >= 2]
+    print(f"multisession: {B} sessions x {F} frames at full width through "
+          f"BatchedStepGraph held against their unbatched runs: discrete outputs equal, "
+          f"largest odometry pose difference {worst['odom_pose']:.3g} m (bar "
+          f"{MS_POSE_TOL_M}), scan-to-map pose {worst['pose']:.3g} m (bar {MS_MAP_TOL_M}); "
+          f"fallback session skipped {sum(s[MS_FLAT] for s in skips)} of {F} frames; "
+          f"capture s {({k: round(v, 4) for k, v in bg.capture_s.items()})}, replays "
+          f"{dict(bg.replays)}, replays a step {run['replays']}; host syncs by step after "
+          f"capture {late[:3]}...", flush=True)
     check(worst["odom_pose"] <= MS_POSE_TOL_M and worst["pose"] <= MS_MAP_TOL_M,
           f"multisession: a batched session strays {worst} m from its unbatched run")
+    check("fallback" in bg.capture_s and bg.replays["fallback"] == F - 2,
+          f"multisession: the fallback graph was not captured and replayed: "
+          f"{dict(bg.replays)}")
+    check(all(c == {flags_site: 1} for _, c in late) and len(late) == F - 3,
+          f"multisession: a graphed step made other host syncs than one flags read: {late}")
+    check(max(run["replays"]) <= 3 and all(r >= 2 for r in run["replays"][1:]),
+          f"multisession: replays a step {run['replays']}")
 
     # host syncs and device kernels per step: B copies of stream 0 from one
-    # seed against one, and against the unbatched step
+    # seed against one, and against the unbatched step; eager and graphed
     n = MS_COUNT_FRAMES
     one = xb[:n, :1].contiguous(), ib[:n, :1].contiguous()
     many = (xb[:n, :1].expand(n, B, *xb.shape[2:]).contiguous(),
             ib[:n, :1].expand(n, B, *ib.shape[2:]).contiguous())
-    _, t1, s1, n1, k1 = _ms_run(cfg, *one, [0], mask, dev, count=True)
-    _, t8, s8, n8, k8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True)
+    e1 = _ms_run(cfg, *one, [0], mask, dev, count=True)
+    e8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True)
+    g1 = _ms_run(cfg, *one, [0], mask, dev, count=True, graphs=True)
+    g8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True, graphs=True)
+    s1, n1, k1 = e1["sites"], e1["tests"], e1["kernels"]
+    s8, n8, k8 = e8["sites"], e8["tests"], e8["kernels"]
     st = slam.init_state(cfg, seed=0, device=dev)
     s0, n0 = collections.Counter(), 0
     for k in range(n - 1):
@@ -2056,10 +2203,12 @@ def multisession_phase(dev) -> dict:
             s0.update(step_sites)
             n0 += loop_tests(step_tests)
     loop_site = "solver.py:" + str(solver_loop_line())
-    print(f"multisession: host syncs over steps 1..{n - 2}: B=1 {sum(s1.values())}, "
-          f"B={B} {sum(s8.values())}, unbatched {sum(s0.values())}; solver loop tests "
-          f"{n1}, {n8}, {n0} (at {loop_site}); device kernels of step {n - 1}: B=1 "
-          f"{sum(k1.values())}, B={B} {sum(k8.values())}", flush=True)
+    print(f"multisession: host syncs over steps 1..{n - 2}: eager B=1 {sum(s1.values())}, "
+          f"B={B} {sum(s8.values())}, unbatched {sum(s0.values())}, graphed B=1 "
+          f"{sum(g1['sites'].values())}, B={B} {sum(g8['sites'].values())}; solver loop "
+          f"tests {n1}, {n8}, {n0} (at {loop_site}); device kernels of step {n - 1}: eager "
+          f"B=1 {sum(k1.values())}, B={B} {sum(k8.values())}, graphed B=1 "
+          f"{sum(g1['kernels'].values())}, B={B} {sum(g8['kernels'].values())}", flush=True)
     print_sync_sites(s8)
     for name, runs in ((f"B=1", (s1, n1)), (f"B={B}", (s8, n8)), ("unbatched", (s0, n0))):
         sites, tests = runs
@@ -2070,6 +2219,10 @@ def multisession_phase(dev) -> dict:
     check(others[0] == others[1] == others[2],
           f"multisession: host syncs outside the solver's loop test differ: B=1 "
           f"{others[0]}, B={B} {others[1]}, unbatched {others[2]}")
+    for name, r in (("B=1", g1), (f"B={B}", g8)):
+        check(r["sites"] == {flags_site: n - 2} and r["tests"] == 0,
+              f"multisession: graphed {name}: host syncs {dict(r['sites'])}, solver loop "
+              f"tests {r['tests']}")
     diff = collections.Counter(k8)
     diff.subtract(k1)
     print("multisession: device kernels, B=8 against B=1, by name: " + "; ".join(
@@ -2078,11 +2231,18 @@ def multisession_phase(dev) -> dict:
     check(sum(k8.values()) < 1.5 * sum(k1.values()),
           f"multisession: {sum(k8.values())} kernels a step at B={B} against "
           f"{sum(k1.values())} at B=1: the launches grow with the sessions")
-    ms1, ms8 = 1e3 * statistics.median(t1[1:]), 1e3 * statistics.median(t8[1:])
-    print(f"multisession: {ms1:.2f} ms a step at B=1 ({1e3 / ms1:.1f} scans/s), "
-          f"{ms8:.2f} ms at B={B} ({B * 1e3 / ms8:.1f} scans/s in all; the staggered run "
-          f"{1e3 * statistics.median(secs[1:]):.2f} ms); peak memory of the B={B} run "
-          f"{peak / 2**20:.0f} MiB; {devices.describe('cuda')}", flush=True)
+    rate = {}
+    for name, r, nb in (("eager B=1", e1, 1), (f"eager B={B}", e8, B), ("graphed B=1", g1, 1),
+                        (f"graphed B={B}", g8, B)):
+        ms = 1e3 * statistics.median(r["secs"][1:-1])
+        rate[name] = (ms, nb * 1e3 / ms, r["dev_us"] / 1e3, r["secs"][-1] * 1e3)
+    print("multisession: " + "; ".join(
+        f"{name} {ms:.2f} ms a step ({sc:.1f} scans/s in all; the traced step "
+        f"{dev_ms:.2f} device ms in {host_ms:.2f} host ms, busy {100 * dev_ms / host_ms:.1f} "
+        f"%)" for name, (ms, sc, dev_ms, host_ms) in rate.items())
+        + f"; the staggered graphed run {1e3 * statistics.median(secs[2:-1]):.2f} ms a step; "
+        f"peak memory of the graphed B={B} run {peak / 2**20:.0f} MiB; "
+        f"{devices.describe('cuda')}", flush=True)
 
     sys.path.insert(0, TOOLS_DIR)
     tmp = tempfile.mkdtemp(prefix="islam_ms.")
@@ -2096,8 +2256,11 @@ def multisession_phase(dev) -> dict:
             tool = json.load(f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(set(tool["batch"]) == {"1", str(B)} and "one_chip_batch8_efficiency" in tool,
+    check(set(tool["batch"]) == {"1", str(B)} and set(tool["batch_eager"]) == {"1", str(B)}
+          and "one_chip_batch8_efficiency" in tool,
           f"multisession: the scaling tool's record lacks keys: {tool}")
+    check(all(r["host_syncs_per_step"] == 1 for r in tool["batch"].values()),
+          f"multisession: the scaling tool's graphed step syncs {tool['batch']}")
     print(f"  multisession phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
           f"{launches['nn']}, pack kernel launches {launches['pack']}", flush=True)
     return dict(launches=launches)
@@ -2534,7 +2697,7 @@ KERNELS = (
 def kernel_records(kern: dict, by_path: dict) -> dict:
     """The per-kernel record; `launches` sums the main paths' runs (the
     slice's `SlamSystem.process`, the graph phase's timed `SlamSystem` run,
-    the circuit's `StreamingRunner.run`, the refine phase's full-width
+    the geoslam phase's `geometric_slam.run_sequence`, the circuit's `StreamingRunner.run`, the refine phase's full-width
     `SlamSystem(cfg, mesh=...)` run, part b, its small-config card run,
     part c, the tools phase, the measure phase and the multisession phase's
     B = 8 run), each counted from 0 just before its run and read just after
@@ -2606,7 +2769,7 @@ def main() -> int:
     gr = graph_phase(dev)
     stream_small_phase(dev)
     checkpoint_phase(dev)
-    geoslam_phase(dev)
+    geo = geoslam_phase(dev)
     st = stream_phase(dev)
     rf = refine_phase(dev, st)
     tl = tools_phase(dev)
@@ -2616,6 +2779,7 @@ def main() -> int:
     print(json.dumps(kernel_records({**kern, **gr["kern"]},
                                     {"slice": sl["launches"],
                                      "graph": gr["launches"],
+                                     "geoslam": geo["launches"],
                                      "stream": st["launches"],
                                      "refine": rf["online"]["launches"],
                                      "refine-small": rf["small"]["launches"],

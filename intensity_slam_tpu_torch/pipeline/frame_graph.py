@@ -1,14 +1,25 @@
-"""FrameGraph: the per-frame step replayed from CUDA graphs over a state it
-updates in place.
+"""Per-frame steps replayed from CUDA graphs over a state they update in
+place: the counterparts of the JAX package's compiled per-frame programs.
 
-The counterpart of `jax.jit(fused_step, donate_argnums=(0,))`, which the JAX
-package compiles in `pipeline/system.py` and `runtime/stream.py`: one
-compiled program a frame over a donated state.  PyTorch runs eagerly, and a
-non-keyframe step is thousands of small kernels whose launches, not their
-work, set its time; a CUDA graph launches a captured sequence of them in one
-call.  The frame is cut at its one host read (the flags that choose the
-fallback and keyframe branches, `slam.front`'s stack), so it is up to four
-graphs:
+PyTorch runs eagerly, and a step is thousands of small kernels whose
+launches, not their work, set its time; a CUDA graph launches a captured
+sequence of them in one call.  Three owners share the capture and replay
+bookkeeping (`Segments`) and the state helpers (`donate`, `clone_state`,
+`pack_info`):
+
+- `FrameGraph` (here): one session's `fused_step`, the counterpart of
+  `jax.jit(fused_step, donate_argnums=(0,))` (`pipeline/system.py`,
+  `runtime/stream.py` of the JAX package);
+- `BatchedStepGraph` (here): B sessions' `slam.slam_step_batched`, the
+  counterpart of `jax.jit(jax.vmap(slam_step), donate_argnums=(0,))`
+  (`tools/scaling_multisession.py` of the JAX package);
+- `geometric_slam.GeoStepGraph`: the A-LOAM step, one segment, the
+  counterpart of the jitted step that the reference's `run_sequence`
+  replays under `lax.scan`.
+
+`FrameGraph`'s frame is cut at its one host read (the flags that choose
+the fallback and keyframe branches, `slam.front`'s stack), so it is up to
+four graphs:
 
     front     `slam.front`: undistortion, projection, intensity odometry,
               curvature features, the stacked flags
@@ -20,11 +31,14 @@ graphs:
 
 A keyframe runs `fused.keyframe_branch` and that frame's log append eagerly
 between `back` and the end of the frame, as `fused.fused_step` does: its
-branches read the device (ROADMAP C.2).
+branches read the device (ROADMAP C.2).  `BatchedStepGraph` has the same
+`front`, `fallback` and `back` over a leading session axis, the flags read
+as one (3, B) read; its fallback runs on all B sessions when any needs it
+(`slam._fallback_batched`), so one graph serves every subset.
 
 - **Static buffers.** The frame's inputs (`xyz`, `inten`, the timestamp as
-  a 0-d tensor, the RANSAC draws `ground_u`) and the whole `FusedState` live
-  in buffers that every graph reads at fixed addresses.
+  a 0-d tensor, the RANSAC draws `ground_u`) and the whole state live in
+  buffers that every graph reads at fixed addresses.
 - **Donation.** Each segment ends by copying the state it made into the
   state buffers (`donate`), so the state is updated in place, as JAX's
   donated buffers are; `adopt(state)` copies a state made outside the
@@ -37,12 +51,13 @@ branches read the device (ROADMAP C.2).
   never run at once, and every tensor one hands to the next is held here).
   While a graph is captured the solver runs its fixed-iteration form
   (`solver.solve_pose`); `capture_s` records each capture's seconds.
-- **Draws.** The RANSAC uniforms are drawn from the state's generator
-  outside the graphs, into the `ground_u` buffer: the eager step's draws.
-- **Frame info.** A graph's outputs are overwritten by its next replay, so
-  the frame's scalars are packed into one byte tensor inside the graph and
-  cloned once after it; the returned `FrameInfo` holds views of that clone
-  and stays valid.
+- **Draws.** The RANSAC uniforms are drawn from the state's generator (each
+  session's, in a batch) outside the graphs, into the `ground_u` buffer:
+  the eager step's draws.
+- **Outputs.** A graph's outputs are overwritten by its next replay, so
+  the step's outputs are packed into one byte tensor inside the graph and
+  cloned once after it; the returned `FrameInfo` (`SlamOutput`,
+  `GeoSlamOutput`) holds views of that clone and stays valid.
 - **Kernel counts.** A capture records the hand kernels' launches without
   making them, and every replay makes them again: the counts of the
   wrappers in `KERNEL_WRAPPERS` are taken back after a capture and advanced
@@ -80,12 +95,13 @@ def leaves(tree):
 
 
 def _rebuild(tree, fn):
-    """The tree with every tensor leaf `t` replaced by `fn(t)`."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, tuple):        # the state's NamedTuples
-        return type(tree)(*(_rebuild(f, fn) for f in tree))
-    return tree
+    """The tree with every leaf `x` that is not a tuple (a tensor, a
+    generator, None) replaced by `fn(x)`."""
+    if isinstance(tree, tuple):
+        kids = (_rebuild(f, fn) for f in tree)
+        # a NamedTuple of the state, or a plain tuple (a batch's generators)
+        return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
+    return fn(tree)
 
 
 def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -117,37 +133,96 @@ def donate(dst, src) -> None:
         d.copy_(s)
 
 
-def clone_state(state: fused.FusedState) -> fused.FusedState:
-    """A copy of `state` that shares no memory with it: every tensor cloned,
-    the generator copied with its state."""
-    gen = state.slam.gen
-    twin = torch.Generator(device=gen.device)
-    twin.set_state(gen.get_state())
-    copy = _rebuild(state, lambda t: t.clone())
-    return copy._replace(slam=copy.slam._replace(gen=twin))
+def _copy(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return leaf.clone()
+    if isinstance(leaf, torch.Generator):
+        twin = torch.Generator(device=leaf.device)
+        twin.set_state(leaf.get_state())
+        return twin
+    return leaf
 
 
-def pack_info(info: fused.FrameInfo) -> tuple[torch.Tensor, tuple]:
-    """The frame's scalars as one uint8 tensor (wider types first, so that
-    every field is aligned to its own size) and their layout: (byte offset,
-    dtype, shape) of each field, in field order."""
-    order = sorted(range(len(info)), key=lambda i: -info[i].element_size())
+def clone_state(state):
+    """A copy of the state tree `state` that shares no memory with it: every
+    tensor cloned, every generator (a session's, or each of a batch's)
+    copied with its state."""
+    return _rebuild(state, _copy)
+
+
+def pack_info(info) -> tuple[torch.Tensor, tuple]:
+    """The tensors of the output tree `info` as one uint8 tensor (wider
+    types first, so that every one is aligned to its own size) and their
+    layout: the tree with each tensor replaced by its place in leaf order,
+    and (byte offset, dtype, shape) of each tensor."""
+    ts = list(leaves(info))
+    slots = iter(range(len(ts)))
+    skeleton = _rebuild(info, lambda x: next(slots) if isinstance(x, torch.Tensor) else x)
+    order = sorted(range(len(ts)), key=lambda i: -ts[i].element_size())
     parts, where, off = [], {}, 0
     for i in order:
-        t = info[i]
+        t = ts[i]
         parts.append(t.reshape(-1).view(torch.uint8))
         where[i] = (off, t.dtype, tuple(t.shape))
         off += t.numel() * t.element_size()
-    return torch.cat(parts), tuple(where[i] for i in range(len(info)))
+    return torch.cat(parts), (skeleton, tuple(where[i] for i in range(len(ts))))
 
 
-def unpack_info(raw: torch.Tensor, layout: tuple) -> fused.FrameInfo:
-    """`FrameInfo` as views of the packed bytes `raw`."""
+def unpack_info(raw: torch.Tensor, layout: tuple):
+    """The output tree `pack_info` packed, its tensors views of the packed
+    bytes `raw`."""
+    skeleton, fields = layout
     views = []
-    for off, dtype, shape in layout:
+    for off, dtype, shape in fields:
         n = torch.Size(shape).numel() * dtype.itemsize
         views.append(raw[off:off + n].view(dtype).reshape(shape))
-    return fused.FrameInfo(*views)
+    return _rebuild(skeleton, lambda x: views[x] if isinstance(x, int) else x)
+
+
+class Segments:
+    """The capture and replay bookkeeping of one graph owner: its segments'
+    graphs, captured lazily and sharing one memory pool, their outputs, the
+    hand kernels' launches a replay, `capture_s` and `replays` by segment."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.capture = self.device.type == "cuda"
+        self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
+        self.outs: dict = {}
+        self.kernels: dict[str, list[int]] = {}     # hand-kernel launches a replay
+        self.pool = None
+        self.capture_s: dict[str, float] = {}
+        self.replays: collections.Counter = collections.Counter()
+
+    def run(self, name: str, fn, cur: dict, *deps: str):
+        """Replay segment `name`'s graph; without one, run it eagerly on this
+        step's outputs of the segments `deps` and (on the card) capture it
+        after, on their graphs' outputs, fixed tensors.  Records the
+        segment's output in `cur`."""
+        g = self.graphs.get(name)
+        if g is not None:
+            g.replay()
+            self.replays[name] += 1
+            for w, n in zip(KERNEL_WRAPPERS, self.kernels[name]):
+                w.launches += n
+            cur[name] = self.outs[name]
+            return cur[name]
+        cur[name] = fn(*(cur[d] for d in deps))
+        if self.capture:
+            t0 = time.perf_counter()
+            g = torch.cuda.CUDAGraph()
+            before = [w.launches for w in KERNEL_WRAPPERS]
+            with torch.cuda.graph(g, pool=self.pool, capture_error_mode="thread_local"):
+                self.outs[name] = fn(*(self.outs[d] for d in deps))
+            torch.cuda.synchronize(self.device)
+            self.kernels[name] = [w.launches - b for w, b in zip(KERNEL_WRAPPERS, before)]
+            for w, b in zip(KERNEL_WRAPPERS, before):
+                w.launches = b
+            if self.pool is None:
+                self.pool = g.pool()
+            self.graphs[name] = g
+            self.capture_s[name] = time.perf_counter() - t0
+        return cur[name]
 
 
 class FrameGraph:
@@ -172,14 +247,10 @@ class FrameGraph:
         self._ground_u = torch.zeros((cfg.ground.ransac_iters, 3), **f32)
         self._fb = Pose.identity(device=self.device)      # the fallback's delta
         self._ident = Pose.identity(device=self.device)
-        self._capture = self.device.type == "cuda"
-        self._graphs: dict[str, torch.cuda.CUDAGraph] = {}
-        self._outs: dict = {}
-        self._kernels: dict[str, list[int]] = {}    # hand-kernel launches a replay
-        self._pool = None
+        self.segments = Segments(self.device)
         self._layout: tuple | None = None      # pack_info's
-        self.capture_s: dict[str, float] = {}
-        self.replays: collections.Counter = collections.Counter()   # by segment
+        self.capture_s = self.segments.capture_s        # by segment
+        self.replays = self.segments.replays
         self.last_output: slam.SlamOutput | None = None   # the last frame's
         # `slam.back` output (a graph's tensors: valid until the next frame)
 
@@ -221,37 +292,6 @@ class FrameGraph:
         raw, self._layout = pack_info(info)
         return raw
 
-    def _run(self, name: str, fn, cur: dict, *deps: str):
-        """Replay segment `name`'s graph; without one, run it eagerly on this
-        frame's outputs of the segments `deps` and (on the card) capture it
-        after, on their graphs' outputs, fixed tensors.  Records the
-        segment's output in `cur`."""
-        g = self._graphs.get(name)
-        if g is not None:
-            g.replay()
-            self.replays[name] += 1
-            for w, n in zip(KERNEL_WRAPPERS, self._kernels[name]):
-                w.launches += n
-            cur[name] = self._outs[name]
-            return cur[name]
-        cur[name] = fn(*(cur[d] for d in deps))
-        if self._capture:
-            t0 = time.perf_counter()
-            g = torch.cuda.CUDAGraph()
-            before = [w.launches for w in KERNEL_WRAPPERS]
-            with torch.cuda.graph(g, pool=self._pool,
-                                  capture_error_mode="thread_local"):
-                self._outs[name] = fn(*(self._outs[d] for d in deps))
-            torch.cuda.synchronize(self.device)
-            self._kernels[name] = [w.launches - b for w, b in zip(KERNEL_WRAPPERS, before)]
-            for w, b in zip(KERNEL_WRAPPERS, before):
-                w.launches = b
-            if self._pool is None:
-                self._pool = g.pool()
-            self._graphs[name] = g
-            self.capture_s[name] = time.perf_counter() - t0
-        return cur[name]
-
     # ---- one frame ----------------------------------------------------------
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamp,
              ground_u: torch.Tensor | None = None) -> fused.FrameInfo:
@@ -269,15 +309,15 @@ class FrameGraph:
             self._ground_u.copy_(ground_u)
 
         cur: dict = {}
-        fr = self._run("front", self._front, cur)
+        fr = self.segments.run("front", self._front, cur)
         skip, has_prev, is_kf = fr.flags.tolist()       # the frame's one host read
         if skip and has_prev:
-            self._run("fallback", self._fallback, cur, "front")
-        out = self._run("back", self._back, cur, "front")._replace(
+            self.segments.run("fallback", self._fallback, cur, "front")
+        out = self.segments.run("back", self._back, cur, "front")._replace(
             host=slam.HostFlags(skip, has_prev, is_kf))
         self.last_output = out
         if not is_kf:
-            raw = self._run("log", self._log, cur, "back")
+            raw = self.segments.run("log", self._log, cur, "back")
         else:
             # the keyframe branch and its log append, eagerly (fused_step's)
             iq, era_qual = fused.frame_quality(st.log, out, cfg)
@@ -289,3 +329,78 @@ class FrameGraph:
             donate(self.state.log, log)
             raw, self._layout = pack_info(info)
         return unpack_info(raw.clone(), self._layout)
+
+
+class BatchedStepGraph:
+    """B sessions' frames (`slam.slam_step_batched`) through replayed
+    graphs: `front`, the flags read ((3, B), the step's one host read),
+    `fallback` when any session's flags say `skip & has_prev` (solved on all
+    B and kept where they say so, `slam._fallback_batched`), `back`.  The
+    batched step has no keyframe branch and no log.  `state` is the batched
+    `SlamState` of buffers (its sessions seeded `seeds`, as
+    `slam.init_batched_state` seeds them), `gen` a tuple of B generators,
+    whose RANSAC draws are taken outside the graphs into the `ground_u`
+    buffer; the state is updated in place.  `step` returns the frame's
+    `SlamOutput` (leading B, `host` a list of B `HostFlags`), packed inside
+    the `back` graph and cloned once after it, so that it stays valid."""
+
+    def __init__(self, cfg: SlamConfig, seeds, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.mask = projection.detection_mask(cfg.sensor, device=self.device)
+        # every buffer its own memory (an initial state may share a tensor
+        # between fields)
+        self.state = clone_state(slam.init_batched_state(cfg, seeds, self.device))
+        B, n = len(self.state.gen), cfg.sensor.num_points
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._xyz = torch.zeros((B, n, 3), **f32)
+        self._inten = torch.zeros((B, n), **f32)
+        self._ts = torch.zeros((B,), **f32)
+        self._ground_u = torch.zeros((B, cfg.ground.ransac_iters, 3), **f32)
+        self._fb = Pose.identity((B,), device=self.device)     # the fallback's delta
+        self._ident = Pose.identity((B,), device=self.device)
+        self.segments = Segments(self.device)
+        self.capture_s = self.segments.capture_s
+        self.replays = self.segments.replays
+        self._layout: tuple | None = None      # pack_info's
+
+    def _front(self) -> slam.FrontOutput:
+        s = self.state
+        fr = slam.front(s, self._xyz, self._inten, self._ts, self.mask, self.cfg)
+        donate(s.odo, fr.odo)
+        donate(self._fb, self._ident)
+        return fr._replace(odo=s.odo)
+
+    def _fallback(self, fr: slam.FrontOutput) -> None:
+        donate(self._fb, slam._fallback_batched(self.state, fr, self.cfg))
+
+    def _back(self, fr: slam.FrontOutput) -> torch.Tensor:
+        new, out = slam.back(self.state, fr, self._fb, self._ground_u, None, self.cfg)
+        donate(self.state, new)
+        raw, self._layout = pack_info(out)
+        return raw
+
+    def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamps,
+             ground_u: torch.Tensor | None = None) -> slam.SlamOutput:
+        """One frame of the B sessions: (B, H*W, 3), (B, H*W), (B,) times or
+        one time for all, (B, ransac_iters, 3) draws or None (each session's
+        generator draws them)."""
+        self._xyz.copy_(xyz)
+        self._inten.copy_(inten)
+        if isinstance(timestamps, torch.Tensor):
+            self._ts.copy_(timestamps)
+        else:
+            self._ts.fill_(timestamps)
+        if ground_u is None:
+            for b, gen in enumerate(self.state.gen):
+                torch.rand(self._ground_u.shape[1:], generator=gen, out=self._ground_u[b])
+        else:
+            self._ground_u.copy_(ground_u)
+
+        cur: dict = {}
+        fr = self.segments.run("front", self._front, cur)
+        host = [slam.HostFlags(*f) for f in zip(*fr.flags.tolist())]   # the one host read
+        if any(h.skip and h.has_prev for h in host):
+            self.segments.run("fallback", self._fallback, cur, "front")
+        raw = self.segments.run("back", self._back, cur, "front")
+        return unpack_info(raw.clone(), self._layout)._replace(host=host)

@@ -15,8 +15,18 @@ scanRegistration -> laserOdometry -> laserMapping (C11, C12, C15):
 The reference's `lax.cond` on "has a previous frame" is not a host branch
 here: `geometric.geometric_delta` already keeps its warm start (identity on
 the first frame) when there is no previous frame, and the delta is then
-selected on the device.  The replay is a Python loop that reads nothing
-per frame beyond the solvers' own reads.
+selected on the device.  So the step has no host branch, and its only host
+reads are the solvers' loop tests, which a capture drops
+(`solver.solve_pose`'s fixed form).
+
+The reference jits one step a frame and `run_sequence` replays it under
+`lax.scan`.  Here `GeoStepGraph` is the step as one CUDA graph replayed
+over a state updated in place (`pipeline.frame_graph`'s donation and
+capture): the first frame runs `geo_slam_step` eagerly, which is its real
+result, and is then captured; every later frame is one replay and no host
+read.  `run_sequence` replays it; on the CPU the same step runs eagerly
+with the same in-place copies.  `geo_slam_step` stays the eager,
+functional step.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from ..ops import curvature, projection
 from ..utils import se3
 from ..utils.se3 import Pose
 from . import geometric, laser_mapping
+from .frame_graph import Segments, clone_state, donate, pack_info, unpack_info
 
 
 class GeoSlamState(NamedTuple):
@@ -96,6 +107,54 @@ def geo_slam_step(
     return new_state, out
 
 
+class GeoStepGraph:
+    """The A-LOAM step replayed from one CUDA graph (see the module
+    docstring).  `state` is the `GeoSlamState` of buffers, each field its
+    own memory, updated in place by every step: `snapshot()` clones it,
+    `adopt(state)` copies a state made elsewhere into it.  `step` returns
+    the frame's `GeoSlamOutput`, packed inside the graph and cloned once
+    after it, so that it stays valid."""
+
+    def __init__(self, cfg: SlamConfig, device="cuda", state: GeoSlamState | None = None,
+                 fov_up_deg: float | None = None, fov_down_deg: float | None = None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.fov = (fov_up_deg, fov_down_deg)
+        self.state = clone_state(init_state(cfg, device=self.device) if state is None
+                                 else state)
+        self._xyz: torch.Tensor | None = None       # the scan's buffers, made at
+        self._inten: torch.Tensor | None = None     # the first step's shape
+        self.segments = Segments(self.device)
+        self.capture_s = self.segments.capture_s
+        self.replays = self.segments.replays
+        self._layout: tuple | None = None           # pack_info's
+
+    def adopt(self, state: GeoSlamState) -> None:
+        """Copy a state made outside the graph into the buffers."""
+        donate(self.state, state)
+
+    def snapshot(self) -> GeoSlamState:
+        """A copy of the state that the next step does not change."""
+        return clone_state(self.state)
+
+    def _step(self) -> torch.Tensor:
+        new, out = geo_slam_step(self.state, self._xyz, self._inten, self.cfg, *self.fov)
+        donate(self.state, new)
+        raw, self._layout = pack_info(out)
+        return raw
+
+    def step(self, xyz: torch.Tensor, intensity: torch.Tensor) -> GeoSlamOutput:
+        """One frame: (N, 3) scan, (N,) intensity; nothing read back."""
+        if self._xyz is None:
+            self._xyz = torch.zeros(xyz.shape, dtype=torch.float32, device=self.device)
+            self._inten = torch.zeros(intensity.shape, dtype=torch.float32,
+                                      device=self.device)
+        self._xyz.copy_(xyz)
+        self._inten.copy_(intensity)
+        raw = self.segments.run("step", self._step, {})
+        return unpack_info(raw.clone(), self._layout)
+
+
 def run_sequence(
     xyz_seq: torch.Tensor,      # (T, N, 3) unorganized scans (zero-padded)
     inten_seq: torch.Tensor,    # (T, N)
@@ -103,14 +162,12 @@ def run_sequence(
     fov_up_deg: float | None = None,
     fov_down_deg: float | None = None,
 ) -> GeoSlamOutput:
-    """Replay a whole unorganized sequence on its device; returns the
-    outputs stacked over frames."""
-    state = init_state(cfg, device=xyz_seq.device)
-    outs = []
-    for k in range(xyz_seq.shape[0]):
-        state, out = geo_slam_step(state, xyz_seq[k], inten_seq[k], cfg,
-                                   fov_up_deg, fov_down_deg)
-        outs.append(out)
+    """Replay a whole unorganized sequence on its device through
+    `GeoStepGraph` (one replay a frame on the card after the first); returns
+    the outputs stacked over frames."""
+    graph = GeoStepGraph(cfg, xyz_seq.device, fov_up_deg=fov_up_deg,
+                         fov_down_deg=fov_down_deg)
+    outs = [graph.step(xyz_seq[k], inten_seq[k]) for k in range(xyz_seq.shape[0])]
     stack = lambda f: torch.stack([f(o) for o in outs])
     return GeoSlamOutput(
         pose=Pose(stack(lambda o: o.pose.q), stack(lambda o: o.pose.t)),

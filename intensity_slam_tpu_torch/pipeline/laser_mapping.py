@@ -18,9 +18,10 @@ geometric-only configuration (`pipeline.geometric_slam`):
   grid and its submap gather are replaced by the translation-invariant
   hash and its 27-cell k-NN gather.
 
-Host reads per step: the pose solves' own (one per Gauss-Newton
-iteration) and the status read of `fit_lines`' `eigh`, twice each; nothing
-else.  The prior block's Jacobian is `mapping._pose_prior`'s central
+Host reads per step: the two pose solves' loop tests (one per
+Gauss-Newton iteration; none in the fixed form that a CUDA graph captures,
+`solver.solve_pose`); nothing else (`fit_lines`' `eigsym.eigh` reads no
+status back).  The prior block's Jacobian is `mapping._pose_prior`'s central
 difference (the reference differentiates `solver.pose_prior` in forward
 mode; the numbers agree within 2e-5).
 """

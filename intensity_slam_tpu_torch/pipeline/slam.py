@@ -28,11 +28,13 @@ is three functions around that read, `front` (up to the flags), `fallback`
 one frame in one launch sequence, session by session what `jax.vmap` of the
 JAX step gives: every op runs over a leading session axis, the host reads
 stay one per site for all B (the flags as one (3, B) read, one loop test per
-solver iteration), and the geometric
-fallback runs on the sub-batch of sessions whose flags say `skip &
-has_prev` (where `jax.vmap` turns the `lax.cond` into a select over all of
-them: the same result).  Session b's RANSAC draws come from its own
-generator, seeded `seeds[b]`: what an unbatched state of that seed draws.
+solver iteration), and when any session's flags say `skip & has_prev` the
+geometric fallback runs on all B sessions and is kept where they say so
+(`_fallback_batched`: what `jax.vmap` makes of the `lax.cond`, and one
+launch sequence whatever the subset, so that `pipeline.frame_graph.
+BatchedStepGraph` can replay it).  Session b's RANSAC draws come from its
+own generator, seeded `seeds[b]`: what an unbatched state of that seed
+draws.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import curvature, ground, projection
-from ..utils import index, se3
+from ..utils import se3
 from ..utils.se3 import Pose
 from . import geometric, mapping, odometry
 
@@ -171,28 +173,15 @@ def slam_step_batched(
     return _step(state, xyz, inten, timestamps, detect_mask, cfg, None, ground_u)
 
 
-def _take_sessions(tree, idx: torch.Tensor):
-    """The sessions `idx` of every tensor in a NamedTuple tree."""
-    if isinstance(tree, torch.Tensor):
-        return torch.index_select(tree, 0, idx)
-    return type(tree)(*(_take_sessions(f, idx) for f in tree))
-
-
-def _fallback_batched(state: SlamState, fc, flags: list, cfg: SlamConfig) -> Pose:
-    """The geometric fallback delta of every session: solved on the
-    sub-batch whose flags say `skip & has_prev`, the identity elsewhere."""
-    B = len(flags)
-    dev = state.merged_pose.q.device
-    sel = tuple(b for b, f in enumerate(flags) if f.skip and f.has_prev)
-    if len(sel) == B:
-        return geometric.geometric_delta(state.geo, fc, cfg)
-    ident = Pose.identity((B,), device=dev)
-    if not sel:
-        return ident
-    idx = index.constant(sel, torch.int64, dev)
-    sub = geometric.geometric_delta(_take_sessions(state.geo, idx),
-                                    _take_sessions(fc, idx), cfg)
-    return Pose(ident.q.index_copy(0, idx, sub.q), ident.t.index_copy(0, idx, sub.t))
+def _fallback_batched(state: SlamState, fr: FrontOutput, cfg: SlamConfig) -> Pose:
+    """The geometric fallback delta of every session of a batch: solved on
+    all B sessions and kept where the flags say `skip & has_prev`, the
+    identity elsewhere (what `jax.vmap` makes of the reference's
+    `lax.cond`).  `geometric_delta` is safe on a session without a previous
+    frame; the caller runs this only when some session takes the fallback."""
+    take = fr.flags[0] & fr.flags[1]
+    return se3.pose_where(take, geometric.geometric_delta(state.geo, fr.fc, cfg),
+                          Pose.identity(take.shape, device=take.device))
 
 
 class FrontOutput(NamedTuple):
@@ -300,7 +289,10 @@ def _step(state: SlamState, xyz, inten, timestamp, detect_mask, cfg: SlamConfig,
     skip, has_prev, is_kf = fr.flags.tolist()
     if batched:
         host = [HostFlags(*f) for f in zip(skip, has_prev, is_kf)]
-        fallback_delta = _fallback_batched(state, fr.fc, host, cfg)
+        if any(h.skip and h.has_prev for h in host):
+            fallback_delta = _fallback_batched(state, fr, cfg)
+        else:
+            fallback_delta = Pose.identity((len(host),), device=dev)
     else:
         host = HostFlags(skip, has_prev, is_kf)
     if fallback_delta is None:

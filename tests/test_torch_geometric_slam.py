@@ -47,10 +47,9 @@ torch.set_num_threads(1)
 T, CARRY = 12, 6
 
 
-@pytest.fixture(scope="module")
-def seq():
-    cfg = config.small_test_config()
-    tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
+def corridor(cfg):
+    """The 12-frame corridor rendered by JAX and permuted per frame (the
+    scans as numpy) and its positions relative to the first frame."""
     poses = JSyn.corridor_trajectory(T, speed=0.3, yaw_rate=0.01)
     xyz, inten = jax.jit(lambda q, t: JSyn.render_sequence(
         J3.Pose(q, t), JSyn.corridor_world(), cfg.sensor))(poses.q, poses.t)
@@ -59,6 +58,14 @@ def seq():
     xyz_u = np.asarray(jnp.take_along_axis(xyz, perms[:, :, None], axis=1))
     inten_u = np.asarray(jnp.take_along_axis(inten, perms, axis=1))
     gt = np.asarray(poses.t) - np.asarray(poses.t)[0]
+    return xyz_u, inten_u, gt
+
+
+@pytest.fixture(scope="module")
+def seq():
+    cfg = config.small_test_config()
+    tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
+    xyz_u, inten_u, gt = corridor(cfg)
     # the reference, frame by frame, keeping its state before each frame
     step = jax.jit(lambda s, x, i: JG.geo_slam_step(s, x, i, cfg))
     st, jstates, jouts = JG.init_state(cfg), [], []

@@ -5,11 +5,12 @@ own unbatched step session by session, at small_test_config.
 Three corridor streams, staggered by one frame each (stream b starts at
 frame b of the render), the third at constant intensity 100 so that its
 intensity odometry skips every frame and its frames after the first go
-through the geometric fallback's sub-batch while the others do not: a mixed
-batch.  Four frames.  The scans are the JAX renderer's; the reference runs
-`jax.jit(jax.vmap(JS.slam_step))` from states seeded 0, 1, 2, and the port
-gets each session's own RANSAC draws along its key chain, as
-tests/test_torch_slam.py does.
+through the geometric fallback (solved on all three sessions, kept for it
+alone) while the others do not: a mixed batch.  Four frames.  The scans
+are the JAX renderer's; the reference runs `jax.jit(jax.vmap(
+JS.slam_step))` from states seeded 0, 1, 2, and the port gets each
+session's own RANSAC draws along its key chain, as tests/test_torch_slam.py
+does.
 
 - Against the reference, per session: `skip`, `is_keyframe`, `num_good`,
   `ground_ok` EQUAL on every frame; `odom_pose` within 1e-4 on the textured
@@ -33,6 +34,8 @@ tests/test_torch_slam.py does.
   first two frames, and tests/test_torch_multisession_ops.py holds the
   freeze itself in float64.
 """
+
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -75,7 +78,8 @@ def _streams(cfg):
 
 
 class _IterationSpy:
-    """Records the iteration counts of every `solver.solve_pose` call."""
+    """Records the iteration counts of every `solver.solve_pose` call, with
+    whether the geometric fallback (`geometric.geometric_delta`) made it."""
 
     def __init__(self, monkeypatch):
         self.calls = []
@@ -83,36 +87,48 @@ class _IterationSpy:
 
         def spy(*a, **kw):
             res = orig(*a, **kw)
-            self.calls.append(res.iterations.clone())
+            caller = sys._getframe(1).f_globals["__name__"]
+            self.calls.append((res.iterations.clone(), caller.endswith(".geometric")))
             return res
 
         monkeypatch.setattr(solver, "solve_pose", spy)
+
+
+def reference_rows(cfg, xb, ib):
+    """`jax.jit(jax.vmap(JS.slam_step))` over the streams from states seeded
+    0..B-1: its rows (numpy), and each frame's (B, K, 3) RANSAC draws along
+    the sessions' key chains, for the port."""
+    jmask = JP.detection_mask(cfg.sensor)
+    jstep = jax.jit(jax.vmap(lambda s, x, i, t: JS.slam_step(s, x, i, t, jmask, cfg)))
+    js = jax.vmap(lambda sd: JS.init_state(cfg, sd))(jnp.arange(B))
+    K = cfg.ground.ransac_iters
+    jrows, draws = [], []
+    for k in range(FRAMES):
+        draws.append(np.stack([
+            np.asarray(jax.random.uniform(jax.random.split(js.rng[b])[1], (K, 3)))
+            for b in range(B)]))
+        js, jo = jstep(js, xb[k], ib[k], jnp.full((B,), k * 0.1, jnp.float32))
+        jrows.append(jax.tree.map(np.asarray, jo))
+    return jrows, draws
 
 
 @pytest.fixture(scope="module")
 def runs():
     cfg, tcfg = config.small_test_config(), tconfig.small_test_config()
     xb, ib = _streams(cfg)
-    jmask = JP.detection_mask(cfg.sensor)
+    jrows, draws = reference_rows(cfg, xb, ib)
     tmask = TP.detection_mask(tcfg.sensor, device="cpu")
-    jstep = jax.jit(jax.vmap(lambda s, x, i, t: JS.slam_step(s, x, i, t, jmask, cfg)))
-    js = jax.vmap(lambda sd: JS.init_state(cfg, sd))(jnp.arange(B))
-    K = cfg.ground.ransac_iters
     mp = pytest.MonkeyPatch()
     spy = _IterationSpy(mp)
     ts = TS.init_batched_state(tcfg, range(B), device="cpu")
-    jrows, trows, draws = [], [], []
+    trows, batched_calls = [], []
     for k in range(FRAMES):
-        u = np.stack([np.asarray(jax.random.uniform(jax.random.split(js.rng[b])[1], (K, 3)))
-                      for b in range(B)])
-        draws.append(u)
-        js, jo = jstep(js, xb[k], ib[k], jnp.full((B,), k * 0.1, jnp.float32))
         ts, to = TS.slam_step_batched(ts, torch.from_numpy(xb[k].copy()),
                                       torch.from_numpy(ib[k].copy()), k * 0.1, tmask, tcfg,
-                                      ground_u=torch.from_numpy(u))
-        jrows.append(jax.tree.map(np.asarray, jo))
+                                      ground_u=torch.from_numpy(draws[k]))
         trows.append(to)
-    batched_calls, spy.calls = spy.calls, []
+        batched_calls.append(spy.calls)
+        spy.calls = []
     singles = []
     for b in range(B):
         s = TS.init_state(tcfg, seed=b, device="cpu")
@@ -166,14 +182,16 @@ def test_each_session_is_its_unbatched_run(runs):
                     d = (getattr(getattr(bo, pose), f)[b] - getattr(getattr(o, pose), f))
                     assert float(d.abs().max()) <= tol, (b, k, pose, f, float(d.abs().max()))
         # the session's solver calls, in order, in the batch (whose calls
-        # carry (B,) counts; the fallback sub-batch holds only the flat
-        # session): as many calls, the same iterations over the first frames
+        # carry (B,) counts; the fallback solves every session when one
+        # takes it, and counts for those whose flags say `skip & has_prev`):
+        # as many calls, the same iterations over the first frames
         mine = []
-        for it in batched_calls:
-            if it.shape == (B,):
-                mine.append(int(it[b]))
-            elif b == FLAT:
-                mine.append(int(it[0]))
-        alone = [int(it) for it in calls]
+        for k, frame_calls in enumerate(batched_calls):
+            h = trows[k].host[b]
+            for it, fallback in frame_calls:
+                assert it.shape == (B,)
+                if not fallback or (h.skip and h.has_prev):
+                    mine.append(int(it[b]))
+        alone = [int(it) for it, _ in calls]
         assert len(mine) == len(alone), (b, mine, alone)
         assert mine[:EQUAL_ITER_CALLS] == alone[:EQUAL_ITER_CALLS], (b, mine, alone)

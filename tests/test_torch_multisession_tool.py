@@ -3,7 +3,8 @@ small_test_config over 3 frames (1 warm), its `main(argv)` called in this
 process, and `--procs 2` over two gloo processes (spawned through
 `parallel.multiproc.launch`), which steps one session a rank with every
 collective of `torch.distributed` counted: 0 calls.  The record has the
-JAX tool's keys (`SCALING_r05.json`: `frames_per_stream`,
+JAX tool's keys, for the graphed step (`BatchedStepGraph`) and, under
+`batch_eager`, for the eager one (`SCALING_r05.json`: `frames_per_stream`,
 `batch.{B}.total_scans_per_sec`, `ms_per_step`,
 `one_chip_batch8_efficiency` when B = 1 and 8 both ran) and `device`.
 The tool's default device is the card, and without one it raises."""
@@ -29,8 +30,8 @@ def test_batches_and_gloo_ranks(tmp_path, capsys):
     res = json.loads(out.read_text())
     ref = json.loads((ROOT / "SCALING_r05.json").read_text())
     assert res["frames_per_stream"] == 3 and res["device"] == "cpu"
-    assert set(res["batch"]) == {"1", "2"}
-    for row in res["batch"].values():
+    assert set(res["batch"]) == {"1", "2"} and set(res["batch_eager"]) == {"1", "2"}
+    for row in list(res["batch"].values()) + list(res["batch_eager"].values()):
         assert set(ref["batch"]["1"]) <= set(row)
         assert row["total_scans_per_sec"] > 0 and row["ms_per_step"] > 0
     assert "one_chip_batch8_efficiency" not in res          # B = 8 did not run

@@ -44,8 +44,14 @@ keyframe: the two `fused_step` probes are, see their probe lines), as
 (captured at the first call) over a state updated in place, which is set
 back to the probe's state before every call, outside the timing and the
 trace.  A replay dispatches no aten op, so the row's FLOPs are the
-`fused_step (non-keyframe)` row's count.  On the CPU a `FrameGraph` runs
-the eager segments, and the row is left out.
+`fused_step (non-keyframe)` row's count.  Beside it a twelfth row,
+`geo_slam_step (graphs)`, times the A-LOAM step (the geometric-only path)
+on the same probe scan, unorganized, as `geometric_slam.run_sequence` runs
+it: through `geometric_slam.GeoStepGraph`, one replayed graph, over the
+state that `geo_slam_step` leaves after the seven frames before it, set
+back before every call; its FLOPs are one eager `geo_slam_step`'s count.  On
+the CPU both graphed rows are left out (a graph owner runs the eager
+segments there).
 
 On `--device cpu` every device column reads "not measured", and so does
 the bound on a card that the peaks table lacks.  Prints the JAX tool's
@@ -74,6 +80,7 @@ from intensity_slam_tpu_torch import config  # noqa: E402
 from intensity_slam_tpu_torch.io import synthetic  # noqa: E402
 from intensity_slam_tpu_torch.ops import curvature, ground, projection  # noqa: E402
 from intensity_slam_tpu_torch.pipeline import frame_graph, fused, geometric, mapping  # noqa: E402
+from intensity_slam_tpu_torch.pipeline import geometric_slam  # noqa: E402
 from intensity_slam_tpu_torch.pipeline import loop as loop_mod  # noqa: E402
 from intensity_slam_tpu_torch.pipeline import odometry, slam  # noqa: E402
 from intensity_slam_tpu_torch.utils import device as devices  # noqa: E402
@@ -239,6 +246,21 @@ def graph_row(prof: Profiler, cfg, fstate, x0, i0, u, flops) -> frame_graph.Fram
     return fg
 
 
+def geo_graph_row(prof: Profiler, cfg, xyz, inten, x0, i0):
+    """The `geo_slam_step (graphs)` row: the probe scan through a
+    `GeoStepGraph` set back before every call to the state that eager
+    `geo_slam_step`s leave after the frames `xyz`, `inten`."""
+    gstate = geometric_slam.init_state(cfg, device=prof.dev)
+    for k in range(xyz.shape[0]):
+        gstate, _ = geometric_slam.geo_slam_step(gstate, xyz[k], inten[k], cfg)
+    with FlopCounterMode(display=False) as fc:
+        geometric_slam.geo_slam_step(gstate, x0, i0, cfg)
+    g = geometric_slam.GeoStepGraph(cfg, prof.dev, state=gstate)
+    prof.stage("geo_slam_step (graphs)", lambda gs, x, i: g.step(x, i), gstate, x0, i0,
+               reset=lambda: g.adopt(gstate), flops=fc.get_total_flops())
+    return g
+
+
 def _fmt(v, digits: int) -> str:
     return v if isinstance(v, str) else f"{v:.{digits}f}"
 
@@ -327,8 +349,11 @@ def main(argv=None) -> int:
         # the non-keyframe frame as SlamSystem runs it (CUDA graphs)
         eager = next(r for r in prof.rows if r["stage"] == "fused_step (non-keyframe)")
         fg = graph_row(prof, cfg, fstate, x0, i0, u, eager["flops"])
-        graph = {"capture_s": fg.capture_s, "replays": dict(fg.replays)}
-        print(f"  (graphs: capture s {fg.capture_s}, replays {dict(fg.replays)})")
+        gg = geo_graph_row(prof, cfg, xyz[:-1], inten[:-1], x0, i0)
+        graph = {"capture_s": fg.capture_s, "replays": dict(fg.replays),
+                 "geo_capture_s": gg.capture_s, "geo_replays": dict(gg.replays)}
+        print(f"  (graphs: capture s {fg.capture_s}, replays {dict(fg.replays)}; A-LOAM "
+              f"step capture s {gg.capture_s}, replays {dict(gg.replays)})")
 
     print(f"\n| Stage | host ms | device us | kernels | busy | operand MB | counted MFLOP "
           f"| bound us | bound by | bound / host | card |")

@@ -9,15 +9,20 @@ counterpart of `tools/scaling_multisession.py` for the PyTorch/CUDA port.
 The JAX tool's configuration: `os0_64_config()` (64 x 1024), the circuit
 world, `--frames` (48) frames at 0.4 m a frame, rendered once on the
 device; B streams of it, stream b rolled by b frames (`roll(-b)`) so that
-the sessions' states differ.  For each B, `slam.slam_step_batched` runs
-`--warm` (8) frames, then the rest are timed, each step synchronized at
-the end of the run: total scans/s = B * timed frames / seconds.  Then, on
-the card, one more step is traced with `torch.profiler` (device kernels a
-step, the device's busy share: summed kernel time over the step's host
-time, both inside the trace) and one more counted with CUDA's sync debug mode (host syncs a
-step); peak memory is `torch.cuda.max_memory_allocated` over the whole B
-run.  `one_chip_batch8_efficiency` is scans/s at B = 8 over 8 times scans/s
-at B = 1.
+the sessions' states differ.  For each B the step runs as the JAX tool
+runs it, compiled: `pipeline.frame_graph.BatchedStepGraph`, the batched
+step replayed from CUDA graphs over a state updated in place (the
+counterpart of `jax.jit(step, donate_argnums=(0,))`); it runs `--warm` (8)
+frames (the first captures the graphs), then the rest are timed, the
+device synchronized at the end of the run: total scans/s = B * timed
+frames / seconds.  Then, on the card, one more step is traced with
+`torch.profiler` (device kernels a step, the device's busy share: summed
+kernel time over the step's host time, both inside the trace) and one more
+counted with CUDA's sync debug mode (host syncs a step); peak memory is
+`torch.cuda.max_memory_allocated` over the whole B run.
+`one_chip_batch8_efficiency` is scans/s at B = 8 over 8 times scans/s at
+B = 1.  The same rows for the eager `slam.slam_step_batched` are kept
+under `batch_eager`, for the record.
 
 `--procs N` is the counterpart of the JAX tool's collective inventory: the
 largest B is split over N ranks (`parallel.multiproc.launch`; NCCL, one
@@ -49,7 +54,7 @@ from intensity_slam_tpu_torch import config  # noqa: E402
 from intensity_slam_tpu_torch.io import synthetic  # noqa: E402
 from intensity_slam_tpu_torch.ops import projection  # noqa: E402
 from intensity_slam_tpu_torch.parallel import multiproc  # noqa: E402
-from intensity_slam_tpu_torch.pipeline import slam  # noqa: E402
+from intensity_slam_tpu_torch.pipeline import frame_graph, slam  # noqa: E402
 from intensity_slam_tpu_torch.utils import device as devices  # noqa: E402
 
 COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
@@ -69,21 +74,33 @@ def staggered(x: torch.Tensor, first: int, count: int) -> torch.Tensor:
     return torch.stack([torch.roll(x, -b, 0) for b in range(first, first + count)], 1)
 
 
-def run_batch(cfg, xyz, inten, first: int, B: int, warm: int, dev, probe: bool) -> dict:
-    """Step sessions first..first+B-1 over the streams; the timing, and on
-    the card the traced and the counted step."""
+def run_batch(cfg, xyz, inten, first: int, B: int, warm: int, dev, probe: bool,
+              graphs: bool = True) -> dict:
+    """Step sessions first..first+B-1 over the streams, through the graphs
+    (or with `graphs` false the eager step); the timing, and on the card
+    the traced and the counted step."""
     F = xyz.shape[0] - (2 if probe else 0)
     xb, ib = staggered(xyz, first, B), staggered(inten, first, B)
     mask = projection.detection_mask(cfg.sensor, device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    state = slam.init_batched_state(cfg, range(first, first + B), device=dev)
+    seeds = range(first, first + B)
+    if graphs:
+        graph = frame_graph.BatchedStepGraph(cfg, seeds, dev)
+        step = lambda k: graph.step(xb[k], ib[k], k * 0.1)
+    else:
+        state = slam.init_batched_state(cfg, seeds, device=dev)
+
+        def step(k):
+            nonlocal state
+            state, out = slam.slam_step_batched(state, xb[k], ib[k], k * 0.1, mask, cfg)
+            return out
     for k in range(warm):
-        state, out = slam.slam_step_batched(state, xb[k], ib[k], k * 0.1, mask, cfg)
+        out = step(k)
     devices.synchronize(dev)
     t0 = time.perf_counter()
     for k in range(warm, F):
-        state, out = slam.slam_step_batched(state, xb[k], ib[k], k * 0.1, mask, cfg)
+        out = step(k)
     devices.synchronize(dev)
     dt = time.perf_counter() - t0
     row = {"total_scans_per_sec": B * (F - warm) / dt,
@@ -94,20 +111,28 @@ def run_batch(cfg, xyz, inten, first: int, B: int, warm: int, dev, probe: bool) 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             devices.synchronize(dev)
             t0 = time.perf_counter()
-            state, out = slam.slam_step_batched(state, xb[F], ib[F], F * 0.1, mask, cfg)
+            step(F)
             devices.synchronize(dev)
             host_us = 1e6 * (time.perf_counter() - t0)
         events = [e for e in prof.events() if e.device_type.name == "CUDA"]
         dev_us = sum(e.time_range.elapsed_us() for e in events)
         with devices.count_syncs(dev.type == "cuda") as sites:
-            state, out = slam.slam_step_batched(state, xb[F + 1], ib[F + 1], (F + 1) * 0.1,
-                                                mask, cfg)
+            step(F + 1)
             devices.synchronize(dev)
         row.update(device_kernels_per_step=len(events),
                    device_busy_share=dev_us / host_us if events else None,
                    host_syncs_per_step=sum(sites.values()),
                    peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
     return row
+
+
+def _print_row(name: str, B: int, row: dict, on_card: bool) -> None:
+    print(f"B={B} {name}: {row['total_scans_per_sec']:.1f} scans/s total, "
+          f"{row['ms_per_step']:.2f} ms/step"
+          + (f", {row['device_kernels_per_step']} kernels, busy "
+             f"{row['device_busy_share']:.3f}, {row['host_syncs_per_step']} syncs, "
+             f"peak {row['peak_memory_bytes'] / 2**20:.0f} MiB" if on_card else ""),
+          flush=True)
 
 
 class CollectiveCounter:
@@ -208,19 +233,18 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.zeros(1, device=dev).add_(1)
             devices.synchronize(dev)
-    res = {"frames_per_stream": frames, "batch": {}}
+    res = {"frames_per_stream": frames, "step": "BatchedStepGraph (CUDA graphs)",
+           "batch": {}, "batch_eager": {}}
     for B in batches:
-        row = run_batch(cfg, xyz, inten, 0, B, warm, dev, probe=on_card)
-        res["batch"][str(B)] = row
-        print(f"B={B}: {row['total_scans_per_sec']:.1f} scans/s total, "
-              f"{row['ms_per_step']:.2f} ms/step"
-              + (f", {row['device_kernels_per_step']} kernels, busy "
-                 f"{row['device_busy_share']:.3f}, {row['host_syncs_per_step']} syncs, "
-                 f"peak {row['peak_memory_bytes'] / 2**20:.0f} MiB" if on_card else ""),
-              flush=True)
+        for key, graphs in (("batch", True), ("batch_eager", False)):
+            row = run_batch(cfg, xyz, inten, 0, B, warm, dev, probe=on_card, graphs=graphs)
+            res[key][str(B)] = row
+            _print_row("graphed" if graphs else "eager", B, row, on_card)
     rates = {int(b): r["total_scans_per_sec"] for b, r in res["batch"].items()}
+    eager = {int(b): r["total_scans_per_sec"] for b, r in res["batch_eager"].items()}
     if 1 in rates and 8 in rates:
         res["one_chip_batch8_efficiency"] = rates[8] / (8 * rates[1])
+        res["one_chip_batch8_efficiency_eager"] = eager[8] / (8 * eager[1])
     if args.procs:
         B = max(batches)
         tmp = args.out + ".procs.json"
