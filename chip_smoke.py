@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 1. build: compile the CUDA kernels from the checkout, one nvcc for each
    source started together (`csrc/nn.cu`, the nearest-neighbour kernels;
-   `csrc/eigsym.cu`, the Jacobi eigensolver), and print nvcc's
+   `csrc/eigsym.cu`, the Jacobi eigensolver; `csrc/graph_cond.cu`, the
+   conditional nodes' handle kernel), and print nvcc's
    register/shared-memory report and the build time;
 2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
    their plain PyTorch versions at the ICP shapes (P = 2048 sources,
@@ -54,8 +55,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    end lies within 0.5 m of the rendered end (the stage times come from a
    run of the eager `fused_step`: a synchronize cannot be captured);
 6b. graph: the compiled frame (`pipeline/frame_graph.py`: `SlamSystem`'s
-   non-keyframe frame as up to four replayed CUDA graphs over a state
-   updated in place).  First the Jacobi eigensolver kernels
+   non-keyframe frame as one replayed CUDA graph over a state updated in
+   place, its solves' early exits, fallback, log append and capacity policy
+   behind conditional (If) nodes, `utils/graph_cond.py`).  First the Jacobi
+   eigensolver kernels
    (`ops/eigsym.py`) against `torch.linalg.eigh`/`eigvalsh` at their three
    call sites' shapes, on the matrices the eager step hands them on the
    slice's first two frames (the RANSAC refit's 3x3 covariances,
@@ -69,22 +72,36 @@ Phases (any failure exits non-zero before the result lines are printed):
    of 8192 for the 3x3, of 8 for the 6x6), and over ten launches; their times by CUDA events and
    device-side at one 6x6, (Q, 3, 3) and one 3x3, beside a one-element
    `Tensor.zero_()`'s device time (the launch floor), their bound, their
-   plain version's and `torch.linalg.eigh`'s.  Then the slice at full
-   width through `SlamSystem` (a timed run, a run with host syncs counted, and the first
-   12 frames or so again with six non-keyframe frames traced by
-   `torch.profiler`: a trace costs seconds) against two runs of the eager
+   plain version's and `torch.linalg.eigh`'s.  Then the solver's chain of
+   If nodes (`cond`, also `--phase cond`): one point-to-point solve of
+   1024 points captured once and replayed on three problems whose early
+   exits differ, each replay bit-equal to its eager early exit with the
+   same iterations, the capture's replay time beside a fixed-form
+   capture's on the problem that runs longest (what the chain costs); the
+   handle kernel (`set_handle_kernel`, `csrc/graph_cond.cu`) held against
+   the plain choice of the body (run, skipped, run) and timed as one node
+   of a chain of 100 skipped ones beside the host read it replaces.  Then
+   the slice at full width through `SlamSystem` (a timed run, a run with
+   host syncs counted and solver iterations read after every frame, and
+   the first 12 frames or so again with six non-keyframe frames traced by
+   `torch.profiler`: a trace costs seconds; the same traced frames with
+   the solves captured in the fixed form) against two runs of the eager
    `fused_step` loop: the same keyframes, skips and loop, positions within
-   the eager runs' spread, on every non-keyframe frame after capture
-   exactly one host sync (the flags read in `FrameGraph.step`) and at most
-   4 graph replays (`FrameGraph`'s count), and on the traced frames at most
-   4 `cudaGraphLaunch` calls and at most 8 other launch calls (input
-   copies, timestamp fill, draws, the flags read, `FrameInfo` clone);
-   printed: ms and device us per non-keyframe frame eager and graphed,
-   capture seconds per graph, peak memory.  Then 8
-   constant-intensity frames at full width: the fallback graph captured
-   and replayed, the eager run's decisions.  Kernel launches are counted
-   over the timed graph run (`graph`; a replay counts the launches its
-   capture recorded);
+   the eager runs' spread, the odometry's and the mapping's solver
+   iterations equal to eager on every frame, on every non-keyframe frame
+   after capture exactly one host sync (the flags read in
+   `FrameGraph.step`) and one graph replay, and on the traced frames one
+   `cudaGraphLaunch` call and at most 8 other launch calls (input copies,
+   timestamp fill, draws, the flags read, `FrameInfo` clone), the
+   launches the wrappers counted against the kernels in the trace by name;
+   printed: ms and device us per non-keyframe frame eager, graphed and
+   graphed in the fixed form, capture seconds, If nodes a replay, peak
+   memory.  Then 8 constant-intensity frames at full width: the fallback
+   region taken in the replays, the eager run's decisions and solver
+   iterations, and two traced frames' launches against their trace.
+   Kernel launches are counted over the timed graph run (`graph`; a
+   replay counts the launches its capture recorded outside the regions
+   and inside those that ran);
 7. stream-small: `StreamingRunner` at small_test_config over a 12-frame
    corridor scan log (the same ground-RANSAC draws handed to every run):
    the CPU and the card take the same keyframes, skips and loops, `run` and
@@ -173,12 +190,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    kernels launch 0 times there; the kernel phase holds them and the slice,
    stream, refine and tools paths launch them;
 14. multisession: the batched step at full width (os0_64_config, 64x1024)
-   through `frame_graph.BatchedStepGraph` (its `front`, `fallback` and
-   `back` replayed from CUDA graphs, the (3, B) flags read between):
+   through `frame_graph.BatchedStepGraph` (one graph: `front`, the
+   fallback under an If node, `back`; the (3, B) flags read after it):
    B = 8 circuit streams of 24 frames, stream b starting at frame b of one
    31-frame render, stream 3 at constant intensity (its intensity odometry
    skips every frame, so the geometric fallback, solved on all 8 sessions
-   and kept for stream 3, is captured and replayed).  Every session is
+   and kept for stream 3, is taken in every replay).  Every session is
    held against an unbatched `slam_step` run of its stream with the same
    draws (its generator's seed): `skip`, `is_keyframe`, `num_good`,
    `ground_ok` and the host flags equal on every frame, the odometry pose
@@ -188,8 +205,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    factorization against a single one), and the scan-to-map solve
    amplifies a rounding difference as it does an input's (ROADMAP C.7:
    one float32 rounding step of the input moves it 0.16-0.40 m over a
-   longer run).  After every capture each step makes exactly one host sync
-   (the flags read) and 2-3 replays.  Then 8 copies of stream 0 from one
+   longer run).  After the capture each step makes exactly one host sync
+   (the flags read) and one replay.  Then 8 copies of stream 0 from one
    seed against one (B = 1) and against the unbatched step, 6 frames, with
    the eager `slam.slam_step_batched`: host syncs by call site equal at
    B = 1, at B = 8 and unbatched at every site but the solver's loop test,
@@ -200,7 +217,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    times B = 1's (a loop over the sessions would launch 8 times as many);
    and through the graphs: one host sync a step, no solver loop test.
    Printed, not held: ms a step, total scans/s and the busy share of a
-   traced step at B = 1 and 8, eager and graphed, peak memory.  Then
+   traced step at B = 1 and 8, eager and graphed, and at B = 8 graphed
+   with the solves captured in the fixed form; peak memory.  Then
    `tools/torch_scaling_multisession.py --batches 1,8 --frames 12 --warm 4`
    (graphed, its eager rows beside).  Kernel launches are counted over the
    graphed staggered B = 8 run (`multisession`): the step reaches no loop
@@ -219,8 +237,8 @@ The line before the last is the per-kernel JSON record; the last line is
     python3 chip_smoke.py --phase NAME
 
 with NAME one of kernel, grid, small, fallback, slice, graph, eig (the
-graph phase's eigensolver part), stream-small, checkpoint, geoslam, stream,
-refine, tools, measure, multisession
+graph phase's eigensolver part), cond (its If-node part), stream-small,
+checkpoint, geoslam, stream, refine, tools, measure, multisession
 
 builds the kernels and runs that one phase alone (no result lines; refine
 runs the stream phase first, for its keyframe store).
@@ -239,6 +257,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import bz2
+import functools
 import importlib
 import json
 import math
@@ -266,7 +285,7 @@ from intensity_slam_tpu_torch.pipeline import (frame_graph, fused, geometric_sla
 from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
 from intensity_slam_tpu_torch.utils import device as devices
-from intensity_slam_tpu_torch.utils import se3
+from intensity_slam_tpu_torch.utils import graph_cond, se3
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = devices.H100_SXM
@@ -405,15 +424,19 @@ def run_system(cfg, xyz, inten, device, count_syncs=False) -> dict:
         syncs=sum(sync_sites.values()), sync_sites=sync_sites)
 
 
-def run_fused(cfg, xyz, inten, device, traced=()) -> dict:
+def run_fused(cfg, xyz, inten, device, traced=(), calls=None) -> dict:
     """A loop of the functional `fused.fused_step` (eagerly, no graphs) over
     a sequence: the yardstick of the graph path.  For the frames `traced`,
-    the device time and device kernels from a `torch.profiler` trace."""
+    the device time and device kernels from a `torch.profiler` trace.  With
+    `calls` (the list of `solve_records`), each frame's slice of it and
+    whether the frame took the fallback (`calls` and `fell_back`)."""
     device = torch.device(device)
     mask = projection.detection_mask(cfg.sensor, device=device)
     st = fused.init_state(cfg, 0, device=device)
-    infos, t_step, dev_us, kernels = [], [], [], []
+    infos, t_step, dev_us, kernels, by_frame, fell = [], [], [], [], [], []
     for k in range(xyz.shape[0]):
+        if calls is not None:
+            n_calls, has_prev = len(calls), bool(st.slam.geo.has_prev)
         with frame_trace(k in traced, host=False) as tr:
             _sync_untracked(device)
             t0 = time.perf_counter()
@@ -423,8 +446,11 @@ def run_fused(cfg, xyz, inten, device, traced=()) -> dict:
         infos.append(info)
         dev_us.append(tr.get("device_us"))
         kernels.append(tr.get("device_kernels"))
+        if calls is not None:
+            by_frame.append(calls[n_calls:])
+            fell.append(bool(info.skip) and has_prev)
     return dict(state=st, t_step=t_step, device_us=dev_us, device_kernels=kernels,
-                **frame_summary(infos))
+                calls=by_frame, fell_back=fell, **frame_summary(infos))
 
 
 @contextlib.contextmanager
@@ -445,6 +471,7 @@ def frame_trace(enabled: bool, host: bool = True):
     gpu = [e for e in prof.events() if e.device_type.name == "CUDA"]
     res["device_us"] = sum(e.time_range.elapsed_us() for e in gpu)
     res["device_kernels"] = len(gpu)
+    res["device_names"] = collections.Counter(e.name for e in gpu)
     res["launch_calls"] = collections.Counter(
         e.name for e in prof.events() if e.device_type.name == "CPU"
         and e.name.startswith("cu") and any(w in e.name for w in LAUNCH_WORDS))
@@ -632,7 +659,7 @@ def kernel_phase(dev, cfg) -> dict:
 
 # the hand kernels' wrappers by the key of their record (`KERNELS`)
 WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
-            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh}
+            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "cond": graph_cond.set_handle}
 
 
 def reset_launches() -> None:
@@ -642,7 +669,8 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Each kernel's launches since `reset_launches` (a graph replay adds
-    the launches its capture recorded: `frame_graph.KERNEL_WRAPPERS`)."""
+    the launches its capture recorded outside its conditional regions, and
+    inside those that ran: `graph_cond.KERNEL_WRAPPERS`)."""
     return {key: w.launches for key, w in WRAPPERS.items()}
 
 
@@ -1470,7 +1498,7 @@ def geoslam_phase(dev) -> dict:
     print(f"  device us per step (median of steps {sorted(traced)}; torch.profiler): eager "
           f"{med([e2['rows'][k]['device_us'] for k in traced]):.1f} in "
           f"{med([e2['rows'][k]['device_kernels'] for k in traced]):.0f} device operations, "
-          f"graphed (the solves at their fixed iterations) "
+          f"graphed (the solves as chains of If nodes) "
           f"{med([g2['rows'][k]['device_us'] for k in traced]):.1f} in "
           f"{med([g2['rows'][k]['device_kernels'] for k in traced]):.0f}")
     print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; replays "
@@ -2117,7 +2145,7 @@ def solver_loop_line() -> int:
     iteration), as the sync counter keys it."""
     import inspect
     lines, first = inspect.getsourcelines(solver.solve_pose)
-    return first + next(i for i, ln in enumerate(lines) if "not bool(active" in ln)
+    return first + next(i for i, ln in enumerate(lines) if "bool(active" in ln)
 
 
 def multisession_phase(dev) -> dict:
@@ -2162,8 +2190,9 @@ def multisession_phase(dev) -> dict:
             for name in worst:
                 d = float((getattr(o, name).t - getattr(bo, name).t[b]).abs().max())
                 worst[name] = max(worst[name], d)
-    # after every capture (front and back at step 0, the fallback at step 1)
-    late = [(k, dict(c)) for k, c in run["by_step"] if k >= 2]
+    # after the capture (at step 0): every counted step a replay
+    late = [(k, dict(c)) for k, c in run["by_step"] if k >= 1]
+    fell = [any(h.skip and h.has_prev for h in o.host) for o in outs]
     print(f"multisession: {B} sessions x {F} frames at full width through "
           f"BatchedStepGraph held against their unbatched runs: discrete outputs equal, "
           f"largest odometry pose difference {worst['odom_pose']:.3g} m (bar "
@@ -2174,13 +2203,12 @@ def multisession_phase(dev) -> dict:
           f"capture {late[:3]}...", flush=True)
     check(worst["odom_pose"] <= MS_POSE_TOL_M and worst["pose"] <= MS_MAP_TOL_M,
           f"multisession: a batched session strays {worst} m from its unbatched run")
-    check("fallback" in bg.capture_s and bg.replays["fallback"] == F - 2,
-          f"multisession: the fallback graph was not captured and replayed: "
-          f"{dict(bg.replays)}")
-    check(all(c == {flags_site: 1} for _, c in late) and len(late) == F - 3,
+    check(fell == [False] + [True] * (F - 1),
+          f"multisession: the replays did not take the fallback region: {fell}")
+    check(all(c == {flags_site: 1} for _, c in late) and len(late) == F - 2,
           f"multisession: a graphed step made other host syncs than one flags read: {late}")
-    check(max(run["replays"]) <= 3 and all(r >= 2 for r in run["replays"][1:]),
-          f"multisession: replays a step {run['replays']}")
+    check(run["replays"] == [0] + [1] * (F - 1) and dict(bg.replays) == {"step": F - 1},
+          f"multisession: replays a step {run['replays']}, {dict(bg.replays)}")
 
     # host syncs and device kernels per step: B copies of stream 0 from one
     # seed against one, and against the unbatched step; eager and graphed
@@ -2192,6 +2220,14 @@ def multisession_phase(dev) -> dict:
     e8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True)
     g1 = _ms_run(cfg, *one, [0], mask, dev, count=True, graphs=True)
     g8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True, graphs=True)
+    # the same graphed step with its solves captured in the fixed form
+    # (every iteration run and frozen), beside the If nodes' early exit
+    fixed_solve = solver.solve_pose
+    solver.solve_pose = functools.partial(fixed_solve, fixed=True)
+    try:
+        g8x = _ms_run(cfg, *many, [0] * B, mask, dev, count=True, graphs=True)
+    finally:
+        solver.solve_pose = fixed_solve
     s1, n1, k1 = e1["sites"], e1["tests"], e1["kernels"]
     s8, n8, k8 = e8["sites"], e8["tests"], e8["kernels"]
     st = slam.init_state(cfg, seed=0, device=dev)
@@ -2233,7 +2269,8 @@ def multisession_phase(dev) -> dict:
           f"{sum(k1.values())} at B=1: the launches grow with the sessions")
     rate = {}
     for name, r, nb in (("eager B=1", e1, 1), (f"eager B={B}", e8, B), ("graphed B=1", g1, 1),
-                        (f"graphed B={B}", g8, B)):
+                        (f"graphed B={B}", g8, B),
+                        (f"graphed B={B} with the solves in the fixed form", g8x, B)):
         ms = 1e3 * statistics.median(r["secs"][1:-1])
         rate[name] = (ms, nb * 1e3 / ms, r["dev_us"] / 1e3, r["secs"][-1] * 1e3)
     print("multisession: " + "; ".join(
@@ -2271,7 +2308,6 @@ def multisession_phase(dev) -> dict:
 EIG_VAL_TOL = 1e-5       # eigenvalue error, relative to the largest |eigenvalue|
 EIG_VEC_TOL = 1e-4       # 1 - |dot| of an eigenvector against the plain one's,
 EIG_GAP_REL = 1e-3       # where its eigengap is above this (relative)
-GRAPH_MAX_REPLAYS = 4    # graph replays a non-keyframe frame may take
 GRAPH_MAX_OTHER = 8      # other launches: input copies, timestamp, draws, info
 GRAPH_TRACED = 6         # non-keyframe frames traced (a trace costs seconds)
 FALLBACK_FRAMES = 8
@@ -2527,41 +2563,227 @@ def eig_kernel_phase(dev) -> dict:
     return rec
 
 
-def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None) -> dict:
+@contextlib.contextmanager
+def solve_records():
+    """Record every `solver.solve_pose` call for the length of the block:
+    (calling module, its `iterations` tensor, whether a capture recorded
+    it).  A captured call's tensor is the graph's buffer, which every replay
+    rewrites."""
+    fn = solver.solve_pose
+    calls = []
+
+    def recording(*a, **k):
+        out = fn(*a, **k)
+        caller = os.path.basename(sys._getframe(1).f_code.co_filename)[:-3]
+        calls.append((caller, out.iterations, graph_cond.capturing(out.iterations.device)))
+        return out
+
+    solver.solve_pose = recording
+    try:
+        yield calls
+    finally:
+        solver.solve_pose = fn
+
+
+def frame_iterations(calls, fell_back: bool) -> dict:
+    """The odometry's and the mapping's solver iterations of one frame's
+    calls, with the fallback's two solves where it ran."""
+    its = collections.defaultdict(list)
+    for caller, t, _ in calls:
+        if caller in ("odometry", "mapping") or (caller == "geometric" and fell_back):
+            its[caller].append(int(t))
+    return dict(its)
+
+
+def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None,
+               its=False) -> dict:
     """`SlamSystem.process` (through `FrameGraph`) over the first `frames`
     frames of a sequence (all by default), each frame synchronized: its host
     ms, with `syncs` its host syncs by call site, for the frames `traced` a
-    `torch.profiler` trace (device time, device kernels, the host's launch
-    calls); and whether it captured a graph and the replays it took."""
+    `torch.profiler` trace (device time, device kernels by name, the host's
+    launch calls) and the kernel launches the wrappers counted; whether it
+    captured the graph and the replays it took; with `its` its solves'
+    iterations (a replayed frame's read from the graph's buffers after
+    it)."""
     system = SlamSystem(cfg, seed=0, device=dev)
     fg = system.graph
     infos, rows = [], []
-    for k in range(xyz.shape[0] if frames is None else frames):
-        n_graphs, replays = len(fg.capture_s), sum(fg.replays.values())
-        with sync_counter(syncs) as sites, frame_trace(k in traced) as tr:
-            _sync_untracked(dev)
-            t0 = time.perf_counter()
-            infos.append(system.process(xyz[k], inten[k], k * 0.1))
-            _sync_untracked(dev)
-            dt = time.perf_counter() - t0
-        rows.append(dict(ms=1e3 * dt, sites=collections.Counter(sites), **tr,
-                         captured=len(fg.capture_s) > n_graphs,
-                         replays=sum(fg.replays.values()) - replays))
+    with solve_records() as calls:
+        for k in range(xyz.shape[0] if frames is None else frames):
+            n_graphs, replays, n_calls = len(fg.capture_s), sum(fg.replays.values()), len(calls)
+            before = read_launches()
+            with sync_counter(syncs) as sites, frame_trace(k in traced) as tr:
+                _sync_untracked(dev)
+                t0 = time.perf_counter()
+                infos.append(system.process(xyz[k], inten[k], k * 0.1))
+                _sync_untracked(dev)
+                dt = time.perf_counter() - t0
+            h = fg.last_output.host
+            row = dict(ms=1e3 * dt, sites=collections.Counter(sites), **tr,
+                       captured=len(fg.capture_s) > n_graphs,
+                       replays=sum(fg.replays.values()) - replays,
+                       fell_back=h.skip and h.has_prev,
+                       launches={key: n - before[key] for key, n in read_launches().items()})
+            if its:
+                mine = [c for c in calls[n_calls:] if not c[2]]
+                if row["replays"]:
+                    mine = [c for c in calls if c[2]]     # the graph's buffers
+                row["its"] = frame_iterations(mine, row["fell_back"])
+            rows.append(row)
     return dict(system=system, rows=rows, **frame_summary(infos))
 
 
+def fused_run_iterations(cfg, xyz, inten, dev, traced=()) -> tuple[dict, list]:
+    """`run_fused` with each frame's solver iterations recorded: (its
+    result, the iterations by frame)."""
+    with solve_records() as calls:
+        r = run_fused(cfg, xyz, inten, dev, traced=traced, calls=calls)
+    return r, [frame_iterations(c, fb) for c, fb in zip(r["calls"], r["fell_back"])]
+
+
+COND_ITERS = 20          # the odometry solve's cap
+COND_POINTS = 1024       # the odometry solve's features at full width
+# (seed, point noise in m, motion scale): three problems whose solves stop
+# after other numbers of iterations
+COND_PROBLEMS = ((1, 0.01, 0.0), (4, 0.02, 1.0), (2, 0.05, 6.0))
+COND_CHAIN = 100         # nodes in the graph that times one node
+
+
+def cond_problem(seed: int, noise: float, scale: float, dev):
+    """`COND_POINTS` random points and their images under a random motion
+    of `scale`, with noise: a point-to-point solve's inputs."""
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randn(COND_POINTS, 3, generator=g) * 3.0
+    xi = torch.cat([torch.randn(3, generator=g) * 0.1 * scale,
+                    torch.randn(3, generator=g) * 0.5 * scale])
+    dst = se3.transform_points(se3.se3_exp(xi), src) + torch.randn(
+        COND_POINTS, 3, generator=g) * noise
+    return src.to(dev), dst.to(dev)
+
+
+def same_solve(a, b) -> bool:
+    """Two `SolveResult`s equal bit for bit in every field."""
+    fa, fb = [a.pose.q, a.pose.t] + list(a[1:]), [b.pose.q, b.pose.t] + list(b[1:])
+    return all(same_bits((p,), (q,)) if p.is_floating_point() else torch.equal(p, q)
+               for p, q in zip(fa, fb))
+
+
+def cond_phase(dev) -> dict:
+    """The solver's chain of If nodes (`utils.graph_cond`): one solve at the
+    odometry's width captured once and replayed on three problems whose
+    early exits differ, each replay bit-equal to its eager early exit with
+    the same iterations; the capture's and a fixed-form capture's replay
+    times on a solve that runs to its cap (what the chain costs), and the
+    handle kernel held and timed alone: a node on a device predicate, its
+    body run and skipped against the plain version's choice, the time of a
+    node in a chain of `COND_CHAIN` skipped ones beside the host read it
+    replaces (`bool(pred)`, the eager loop's test)."""
+    src = torch.zeros(COND_POINTS, 3, device=dev)
+    dst = torch.zeros(COND_POINTS, 3, device=dev)
+    fn = solver.point_to_point(src, dst, torch.ones(COND_POINTS, device=dev))
+    p0 = se3.Pose.identity(device=dev)
+    probs = [cond_problem(*p, dev) for p in COND_PROBLEMS]
+    src.copy_(probs[0][0])
+    dst.copy_(probs[0][1])
+    solver.solve_pose(p0, fn, iters=COND_ITERS)           # warm-up
+    pool = torch.cuda.graph_pool_handle()
+    graphs, outs = {}, {}
+    for form, kw in (("cond", {}), ("fixed", {"fixed": True})):
+        graphs[form] = torch.cuda.CUDAGraph()
+        with graph_cond.capture(graphs[form], pool):
+            outs[form] = solver.solve_pose(p0, fn, iters=COND_ITERS, **kw)
+    torch.cuda.synchronize()
+    rows = []
+    for s_, d_ in probs:
+        src.copy_(s_)
+        dst.copy_(d_)
+        eager = solver.solve_pose(p0, fn, iters=COND_ITERS)
+        for form in ("cond", "fixed"):
+            graphs[form].replay()
+        torch.cuda.synchronize()
+        rows.append(dict(its=int(eager.iterations),
+                         graph_its={f: int(outs[f].iterations) for f in outs},
+                         same={f: same_solve(eager, outs[f]) for f in outs}))
+    # replays of the longest problem's solve, capped at its own exit (so
+    # that both forms run every iteration: the difference is the chain's
+    # cost), and capped at COND_ITERS (what the early exit saves)
+    longest = max(range(len(rows)), key=lambda i: rows[i]["its"])
+    its = rows[longest]["its"]
+    src.copy_(probs[longest][0])
+    dst.copy_(probs[longest][1])
+    for form, kw in (("cond at its exit", {}), ("fixed at its exit", {"fixed": True})):
+        graphs[form] = torch.cuda.CUDAGraph()
+        with graph_cond.capture(graphs[form], pool):
+            solver.solve_pose(p0, fn, iters=its, **kw)
+    ms = {f: [] for f in graphs}
+    for f in ("fixed", "cond", "cond at its exit", "fixed at its exit",
+              "fixed at its exit", "cond at its exit", "cond", "fixed"):
+        ms[f].append(time_cuda(graphs[f].replay, reps=30))
+    solve_ms = {f: statistics.median(v) for f, v in ms.items()}
+    node_chain_ms = (solve_ms["cond at its exit"] - solve_ms["fixed at its exit"]) / its
+    print(f"cond: one solve ({COND_POINTS} points, {COND_ITERS} iterations at most) "
+          f"captured as a chain of If nodes and in the fixed form, replayed on three "
+          f"problems: {rows}; replay ms on the problem that takes {its} iterations, "
+          f"alternated: {ms}; the chain's cost an iteration, both forms capped at "
+          f"{its}: {node_chain_ms:.5f} ms; {devices.describe('cuda')}", flush=True)
+    check(all(r["graph_its"]["cond"] == r["its"] and all(r["same"].values()) for r in rows),
+          f"cond: a replayed solve is not its eager early exit: {rows}")
+    check(len({r["its"] for r in rows}) == len(rows),
+          f"cond: the problems' early exits do not differ: {rows}")
+
+    # the handle kernel alone: a node's body run where the predicate says so
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    out = torch.zeros(8, device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    g = torch.cuda.CUDAGraph()
+    with graph_cond.capture(g, pool):
+        with graph_cond.when(pred, "probe") as taken:
+            if taken:
+                out.copy_(x + 1.0)
+    err = 0.0
+    for value in (True, False, True):
+        out.fill_(-1.0)
+        pred.fill_(value)
+        g.replay()
+        plain = torch.where(pred, x + 1.0, torch.full_like(x, -1.0))
+        err = max(err, float((out - plain).abs().max()))
+    chain, empty = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    pred.fill_(False)
+    with graph_cond.capture(chain, pool):
+        for _ in range(COND_CHAIN):
+            with graph_cond.when(pred, "probe") as taken:
+                if taken:
+                    out.add_(1.0)
+        out.add_(0.0)
+    with graph_cond.capture(empty, pool):
+        out.add_(0.0)
+    node_ms = (time_cuda(chain.replay, reps=30) - time_cuda(empty.replay, reps=30)) / COND_CHAIN
+    plain_ms = time_cuda(lambda: bool(pred))
+    rec = dict(max_abs_err=err, ms=node_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=1e3 / PEAK_BYTES_PER_S, bound_by="bytes",
+               solve_ms=solve_ms, solve_rows=rows, chain_ms_per_iteration=node_chain_ms)
+    print(f"cond: set_handle_kernel, a node on a device predicate held against the plain "
+          f"choice over run, skipped, run: max |error| {err}; one node in a chain of "
+          f"{COND_CHAIN} skipped ones {node_ms:.5f} ms (handle kernel and node evaluation), "
+          f"the host read it replaces {plain_ms:.5f} ms", flush=True)
+    check(err == 0.0, f"cond: the node's body ran against its predicate ({err})")
+    return rec
+
+
 def graph_phase(dev) -> dict:
-    """The non-keyframe frame as replayed CUDA graphs (`FrameGraph`, through
-    `SlamSystem`) against the eager `fused_step`, at full width."""
+    """The non-keyframe frame as one replayed CUDA graph (`FrameGraph`,
+    through `SlamSystem`) against the eager `fused_step`, at full width;
+    first the eigensolver kernels and the solver's chain of If nodes."""
     t_phase = time.perf_counter()
     kern = eig_kernel_phase(dev)
+    kern["cond"] = cond_phase(dev)
     cfg = slice_config(config.SlamConfig())
     traj = loop_trajectory()
     xyz, inten = synthetic.render_sequence(
         se3.Pose(traj.q.to(dev), traj.t.to(dev)), synthetic.corridor_world(device=dev),
         cfg.sensor)
     n = xyz.shape[0]
-    secs = {"eigensolver": time.perf_counter() - t_phase}
+    secs = {"eigensolver and cond": time.perf_counter() - t_phase}
     tick = time.perf_counter()
 
     def lap(name):
@@ -2576,30 +2798,41 @@ def graph_phase(dev) -> dict:
     eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     lap("eager runs")
     nonkf = [k for k, (_, kf) in enumerate(e1["frames"]) if not kf]
-    # the non-keyframe frames traced: from the third on (the first two
-    # frames capture the graphs)
+    # the non-keyframe frames traced: from the third on (the first
+    # non-keyframe frame captures the graph)
     probe = [k for k in nonkf if k >= 2][:GRAPH_TRACED]
-    e2 = run_fused(cfg, xyz, inten, dev, traced=set(probe[:3]))
-    lap("eager, traced in part")
+    e2, e_its = fused_run_iterations(cfg, xyz, inten, dev, traced=set(probe[:3]))
+    lap("eager, traced in part, iterations")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     ga = run_graphs(cfg, xyz, inten, dev)
     launches = read_launches()
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     lap("graph run")
-    gs = run_graphs(cfg, xyz, inten, dev, syncs=True)
-    lap("graph syncs")
+    gs = run_graphs(cfg, xyz, inten, dev, syncs=True, its=True)
+    lap("graph syncs and iterations")
     gt = run_graphs(cfg, xyz, inten, dev, traced=set(probe), frames=probe[-1] + 1)
     lap("graph traced")
+    fixed_solve = solver.solve_pose
+    solver.solve_pose = functools.partial(fixed_solve, fixed=True)
+    try:
+        gx = run_graphs(cfg, xyz, inten, dev, traced=set(probe[:3]), frames=probe[2] + 1)
+    finally:
+        solver.solve_pose = fixed_solve
+    lap("fixed-form graph traced")
     fg = ga["system"].graph
     spread = float((e1["pose_t"] - e2["pose_t"]).abs().max())
     diff = max(float((g["pose_t"] - e["pose_t"]).abs().max())
                for g in (ga, gs) for e in (e1, e2))
     dlog = float((ga["system"].state.log.t - e1["state"].log.t).abs().max())
-    same = all(decisions(g) == decisions(e1) for g in (ga, gs, e2))
-    # frames after every graph their branch needs was captured
+    # the traced runs stop early: held to the eager run's first frames
+    cut = lambda d, m: (d[0][:m], [kf for kf in d[1] if kf[0] < m])
+    same = all(decisions(g) == cut(decisions(e1), len(g["frames"]))
+               for g in (ga, gs, gt, gx, e2))
+    # non-keyframe frames after the capture
     after = [k for k in nonkf if not any(r["captured"] for r in (ga["rows"][k],
-                                                                gs["rows"][k]))]
+                                                                gs["rows"][k]))
+             and ga["rows"][k]["replays"]]
     flags_site = f"frame_graph.py:{frame_graph_read_line()}"
     syncs = [(k, dict(gs["rows"][k]["sites"])) for k in after]
     counted = [(k, ga["rows"][k]["replays"]) for k in after]
@@ -2608,28 +2841,43 @@ def graph_phase(dev) -> dict:
     replays = [(k, gt["rows"][k]["replays"],
                 sum(v for name, v in gt["rows"][k]["launch_calls"].items() if "Graph" in name))
                for k in probe]
+    its_differ = [(k, e_its[k], r["its"]) for k, r in enumerate(gs["rows"])
+                  if r["its"] != e_its[k]]
     med = lambda xs: statistics.median(xs) if xs else float("nan")
-    print(f"graph (full width slice, {n} frames): decisions of two graph runs and two "
-          f"eager runs equal {same}; keyframes {len(e1['kfs'])}, skips "
-          f"{[k for k, f in enumerate(e1['frames']) if f[0]]}, accepted loops "
-          f"{[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
+    # the first three traced frames, in both graphs
+    dev_us = {name: med([r["rows"][k]["device_us"] for k in probe[:3]]) for name, r in
+              (("cond", gt), ("fixed", gx))}
+    print(f"graph (full width slice, {n} frames): decisions of three graph runs, the "
+          f"fixed-form graph run and two eager runs equal {same}; keyframes "
+          f"{len(e1['kfs'])}, skips {[k for k, f in enumerate(e1['frames']) if f[0]]}, "
+          f"accepted loops {[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
     print(f"  positions: eager against eager {spread:.3g} m (the spread), graphs against "
           f"eager {diff:.3g} m; final log {dlog:.3g} m")
+    print(f"  solver iterations by frame (odometry, mapping), eager: "
+          f"{[(i.get('odometry'), i.get('mapping')) for i in e_its]}; frames whose graphed "
+          f"iterations differ {its_differ}")
     print(f"  ms per non-keyframe frame (median, each frame synchronized): eager "
           f"{med([1e3 * e1['t_step'][k] for k in nonkf]):.3f}, graphs "
           f"{med([ga['rows'][k]['ms'] for k in after]):.3f} (after capture); keyframes "
           f"eager {med([1e3 * e1['t_step'][k] for k in range(n) if k not in nonkf]):.3f}, "
-          f"graphs {med([ga['rows'][k]['ms'] for k in range(n) if k not in nonkf]):.3f}")
-    print(f"  device us per non-keyframe frame (median of frames {probe[:3]} eager, "
-          f"{probe} graphs; torch.profiler): eager "
-          f"{med([e2['device_us'][k] for k in probe[:3]]):.1f} in "
+          f"graphs {med([ga['rows'][k]['ms'] for k in range(n) if k not in nonkf]):.3f}; "
+          f"{devices.describe('cuda')}")
+    print(f"  device us per non-keyframe frame (median of frames {probe[:3]}; "
+          f"torch.profiler): eager {med([e2['device_us'][k] for k in probe[:3]]):.1f} in "
           f"{med([e2['device_kernels'][k] for k in probe[:3]]):.0f} device operations, "
-          f"graphs (the solves at their fixed iterations) "
-          f"{med([gt['rows'][k]['device_us'] for k in probe]):.1f} in "
-          f"{med([gt['rows'][k]['device_kernels'] for k in probe]):.0f}")
-    print(f"  capture s per graph {({k: round(v, 4) for k, v in fg.capture_s.items()})}; "
-          f"replays by graph {dict(fg.replays)}; peak device memory eager "
-          f"{eager_peak:.0f} MiB, graphs {graph_peak:.0f} MiB")
+          f"graph with the solves as chains of If nodes {dev_us['cond']:.1f} in "
+          f"{med([gt['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}, the same graph "
+          f"with the solves in the fixed form {dev_us['fixed']:.1f} in "
+          f"{med([gx['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}; host ms on "
+          f"those traced frames {med([gt['rows'][k]['ms'] for k in probe[:3]]):.3f} and "
+          f"{med([gx['rows'][k]['ms'] for k in probe[:3]]):.3f}; graph device us over all "
+          f"{len(probe)} traced frames {med([gt['rows'][k]['device_us'] for k in probe]):.1f}")
+    print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; replays "
+          f"{dict(fg.replays)}; If nodes a replay outside the regions "
+          f"{fg.segments.kernels.get('frame', [None])[-1]}, in the fallback region "
+          f"{fg.segments.region_kernels.get('frame', {}).get('fallback', [None])[-1]}; "
+          f"peak device memory "
+          f"eager {eager_peak:.0f} MiB, graph {graph_peak:.0f} MiB")
     print(f"  non-keyframe frames after capture {after}: host syncs by call site "
           f"{syncs}")
     print(f"  graph replays a frame (FrameGraph's count) {counted}; on the traced "
@@ -2638,39 +2886,77 @@ def graph_phase(dev) -> dict:
     check(same, "graph: the graph runs took other decisions than the eager runs")
     check(diff <= spread, f"graph: positions {diff:.3g} m from the eager runs, whose "
           f"spread is {spread:.3g} m")
+    check(not its_differ, f"graph: solver iterations differ from eager: {its_differ}")
     check(len(after) >= 10, f"graph: only {len(after)} non-keyframe frames after capture")
     check(all(s == {flags_site: 1} for _, s in syncs),
           f"graph: a non-keyframe frame made other host syncs than one flags read: {syncs}")
     check(len(probe) == GRAPH_TRACED, f"graph: non-keyframe frames to trace {probe}")
-    check(all(r <= GRAPH_MAX_REPLAYS for _, r in counted)
-          and all(c <= GRAPH_MAX_REPLAYS for _, _, c in replays),
+    check(all(r == 1 for _, r in counted) and all(r == c == 1 for _, r, c in replays),
           f"graph: replays a frame {counted}, {replays}")
     check(all(o <= GRAPH_MAX_OTHER for _, o in other), f"graph: other launches {other}")
-    check(launches["eigh"] > 0 and launches["eigvalsh"] > 0,
-          f"graph: the eigensolver kernel was not launched on the path: {launches}")
+    check(all(launches[key] > 0 for key in ("eigh", "eigvalsh", "cond")),
+          f"graph: a kernel of the path was not launched: {launches}")
+    traced_launches(gt, probe, "graph")
 
-    # the fallback segment: 8 constant-intensity frames skip on every frame
+    # the fallback region: 8 constant-intensity frames skip on every frame
     fcfg = config.SlamConfig()
     ftraj = forward_trajectory(FALLBACK_FRAMES)
     fx, fi = synthetic.render_sequence(
         se3.Pose(ftraj.q.to(dev), ftraj.t.to(dev)), synthetic.corridor_world(device=dev),
         fcfg.sensor)
     fi = torch.full_like(fi, 100.0)
-    fe = run_fused(fcfg, fx, fi, dev)
-    fgr = run_graphs(fcfg, fx, fi, dev, "timed")
-    fb_replays = fgr["system"].graph.replays["fallback"]
+    fe, fe_its = fused_run_iterations(fcfg, fx, fi, dev)
+    ftraced = [FALLBACK_FRAMES - 2, FALLBACK_FRAMES - 1]
+    fgr = run_graphs(fcfg, fx, fi, dev, its=True, traced=set(ftraced))
+    taken = [k for k, r in enumerate(fgr["rows"]) if r["replays"] and r["fell_back"]]
+    f_its = [r["its"] for r in fgr["rows"]]
     fdiff = float((fgr["pose_t"] - fe["pose_t"]).abs().max())
     print(f"  fallback ({FALLBACK_FRAMES} constant-intensity frames, full width): skips "
           f"{sum(f[0] for f in fgr['frames'])}, same decisions as eager "
-          f"{decisions(fgr) == decisions(fe)}, fallback graph captured "
-          f"{'fallback' in fgr['system'].graph.capture_s} and replayed {fb_replays} times, "
-          f"positions {fdiff:.3g} m from eager")
+          f"{decisions(fgr) == decisions(fe)}, the fallback region taken in the replays of "
+          f"frames {taken}, replays {dict(fgr['system'].graph.replays)}, positions "
+          f"{fdiff:.3g} m from eager; solver iterations graphed {f_its}, eager {fe_its}")
     check(decisions(fgr) == decisions(fe), "graph: the fallback run took other decisions")
-    check(fb_replays >= FALLBACK_FRAMES - 3, f"graph: fallback replayed {fb_replays} times")
+    check(len(taken) >= FALLBACK_FRAMES - 3, f"graph: the fallback region taken in {taken}")
+    check(f_its == fe_its, f"graph: fallback frames' iterations {f_its} against {fe_its}")
+    check(all(fgr["rows"][k]["fell_back"] and fgr["rows"][k]["replays"] for k in ftraced),
+          f"graph: the traced fallback frames {ftraced} did not replay with the region")
+    traced_launches(fgr, ftraced, "graph (fallback)")
     lap("fallback")
     print(f"  graph phase {time.perf_counter() - t_phase:.1f} s "
           f"({({k: round(v, 1) for k, v in secs.items()})})", flush=True)
     return dict(launches=launches, kern=kern)
+
+
+# which device kernels of a trace each record key's wrapper launches (the
+# eigensolver's template arguments: <T, N, VECS>, vectors for `eigh` only)
+TRACE_KERNELS = {
+    "eigh": lambda n: "jacobi_kernel" in n and ("true" in n or "(bool)1" in n),
+    "eigvalsh": lambda n: "jacobi_kernel" in n and not ("true" in n or "(bool)1" in n),
+    "cond": lambda n: "set_handle_kernel" in n,
+}
+
+
+def traced_launches(run: dict, frames, what: str) -> None:
+    """On the traced frames `frames` of `run`, the launches the wrappers
+    counted (a replay: what its capture recorded outside the regions and
+    inside those that ran) against the kernels the profiler saw by name.
+    CUPTI now and then drops a launch from a trace (`kernel_device_us`), so
+    a trace may see fewer, never more, and one frame at least must see
+    exactly the count."""
+    exact = []
+    for k in frames:
+        row = run["rows"][k]
+        seen = {key: sum(v for name, v in row["device_names"].items() if match(name))
+                for key, match in TRACE_KERNELS.items()}
+        counted = {key: row["launches"][key] for key in TRACE_KERNELS}
+        print(f"  {what}: frame {k} (fallback taken {row['fell_back']}): launches counted "
+              f"{counted}, kernels in the trace {seen}; the eigensolver's names "
+              f"{sorted({n[:90] for n in row['device_names'] if 'jacobi' in n})}")
+        check(all(seen[key] <= counted[key] for key in seen),
+              f"{what}: frame {k}: the trace saw more kernels {seen} than counted {counted}")
+        exact.append(seen == counted)
+    check(any(exact), f"{what}: no traced frame saw the launches counted")
 
 
 def frame_graph_read_line() -> int:
@@ -2685,12 +2971,17 @@ NN_SOURCE = ("intensity_slam_tpu_torch/csrc/nn.cu", "intensity_slam_tpu/ops/pall
 EIG_SOURCE = ("intensity_slam_tpu_torch/csrc/eigsym.cu",
               "no Pallas source: XLA's jnp.linalg.eigh at intensity_slam_tpu/ops/ground.py:56 "
               "and pipeline/mapping.py:167, jnp.linalg.eigvalsh at ops/solver.py:185")
+COND_SOURCE = ("intensity_slam_tpu_torch/csrc/graph_cond.cu",
+               "no Pallas source: the predicates of lax.while_loop at "
+               "intensity_slam_tpu/ops/solver.py:177 and of lax.cond at pipeline/slam.py:126, "
+               "pipeline/mapping.py:355, :360, pipeline/fused.py:208")
 # (record key, kernel name, source, what it replaces)
 KERNELS = (
     ("nn", "nn_packed_kernel", *NN_SOURCE),
     ("pack", "pack_kernel", *NN_SOURCE),
     ("eigh", "jacobi_kernel<3, vectors> (eigsym.eigh)", *EIG_SOURCE),
     ("eigvalsh", "jacobi_kernel<6, values> (eigsym.eigvalsh)", *EIG_SOURCE),
+    ("cond", "set_handle_kernel (graph_cond.when)", *COND_SOURCE),
 )
 
 
@@ -2727,11 +3018,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(mod.build, verbose=True)
-                  for name, mod in (("nn", pallas_nn), ("eigsym", eigsym))}
+                  for name, mod in (("nn", pallas_nn), ("eigsym", eigsym),
+                                    ("graph_cond", graph_cond))}
         reports = {name: b.result() for name, b in builds.items()}
-    print(f"kernels build (nn.cu and eigsym.cu in parallel): "
+    print(f"kernels build (nn.cu, eigsym.cu and graph_cond.cu in parallel): "
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -2751,6 +3043,7 @@ def main() -> int:
                   "slice": lambda: slice_phase(dev),
                   "graph": lambda: graph_phase(dev),
                   "eig": lambda: eig_kernel_phase(dev),
+                  "cond": lambda: cond_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),
                   "checkpoint": lambda: checkpoint_phase(dev),
                   "geoslam": lambda: geoslam_phase(dev),

@@ -10,11 +10,19 @@ Robustification is IRLS (Huber/Cauchy weights per residual block).
 The JAX package's `lax.while_loop` becomes a Python loop whose condition is
 read on the host once per iteration, so the solve stops on the same iteration
 as the reference.  While the current CUDA stream is being captured into a
-graph (`pipeline.frame_graph`), or with `fixed=True`, the loop reads nothing:
-it runs all `iters` iterations and freezes the solve once it meets its test
-(pose, cost, damping, step test and iteration count kept, the frozen
-iterations computed and discarded by `torch.where`), the semantics of a
-vmapped `while_loop`; every output is bit-equal to the early-exit loop's.
+graph (`pipeline.frame_graph`), the loop is a chain of `iters` conditional
+nodes (`utils.graph_cond.when`): iteration k's test is computed on the
+device before its node, and its body, one iteration of the frozen form
+below, runs only on the replays whose solve is still iterating and writes
+the loop's state into buffers made before the first node; so a replayed
+solve stops on the iteration the early-exit loop stops on.  `cond=True`
+selects that form off capture too (each node's test read on the host, as
+the CPU tests run it).  With `fixed=True` the loop reads nothing and runs
+all `iters` iterations, freezing the solve once it meets its test (pose,
+cost, damping, step test and iteration count kept, the frozen iterations
+computed and discarded by `torch.where`), the semantics of a vmapped
+`while_loop`.  Every output of either form is bit-equal to the early-exit
+loop's.
 The smallest Hessian eigenvalue comes from `ops.eigsym`, which reads no
 status either.  A residual function may carry its analytic Jacobian as a
 `jacobian(pose)` attribute (`point_to_point` does); any other residual
@@ -26,9 +34,9 @@ stacks them when every part has one; `pose_prior` goes through `jacfwd`.
 A batch of independent problems (a leading session axis on the pose, (B,
 G, D) residuals and (B, G) weights) is solved in one loop, as `jax.vmap`
 runs the reference's `while_loop`: the host reads once per iteration
-whether any session is still iterating, and a session that has met its
-stopping test is frozen (pose, cost, damping, step test and its own
-iteration count) while the others go on.
+whether any session is still iterating (a node tests it, under capture),
+and a session that has met its stopping test is frozen (pose, cost,
+damping, step test and its own iteration count) while the others go on.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jacfwd
 
-from ..utils import se3
+from ..utils import graph_cond, se3
 from ..utils.se3 import Pose
 from . import eigsym
 
@@ -97,16 +105,18 @@ def solve_pose(
     lm_lambda0: float = 1e-4,
     use_lm: bool = True,
     grad_tol: float = 1e-8,
-    fixed: bool | None = None,
+    fixed: bool = False,
+    cond: bool | None = None,
 ) -> SolveResult:
     """Minimize sum_g w_g rho(||r_g(pose)||^2) over SE(3).
 
     `residual_fn` must keep fixed shapes; its weight output masks padding AND
     can encode per-block sqrt-information scaling.  Its optional
     `jacobian(pose)` attribute returns the (..., G, D, 6) Jacobian w.r.t. the
-    right tangent at 0.  One host read per iteration (the loop condition),
-    none in the fixed form: `fixed=True`, or `fixed=None` while the current
-    CUDA stream is capturing a graph.  With a batch of poses (B, 4)/(B, 3)
+    right tangent at 0.  One host read per iteration (the loop condition)
+    eagerly; under capture (`cond=None` while the current CUDA stream is
+    capturing a graph, or `cond=True`) a conditional node an iteration; none
+    in the fixed form (`fixed=True`).  With a batch of poses (B, 4)/(B, 3)
     every output has a leading B."""
 
     def cost_of(p: Pose) -> torch.Tensor:
@@ -138,16 +148,19 @@ def solve_pose(
 
     dev = pose0.q.device
     lead = pose0.q.shape[:-1]        # () alone, (B,) for a batch of sessions
-    if fixed is None:
-        fixed = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
-    freeze = bool(lead) or fixed     # a frozen solve keeps its values
+    if cond is None:
+        cond = not fixed and graph_cond.capturing(dev)
+    freeze = bool(lead) or fixed or cond   # a frozen solve keeps its values
     eye6 = torch.eye(6, device=dev)
     c0 = cost_of(pose0)
     tol = grad_tol * torch.clamp(c0, min=1.0)
     FTOL = 1e-6  # Ceres' function_tolerance default
     MAX_CONSECUTIVE_REJECT = 3  # at the optimum every LM step is rejected
 
-    pose, cost = pose0, c0
+    # the loop's state; in the conditional form each tensor is a buffer that
+    # every iteration's body writes in place
+    pose = Pose(pose0.q.clone(), pose0.t.clone()) if cond else pose0
+    cost = c0.clone() if cond else c0
     lam = torch.full(lead, lm_lambda0, dtype=c0.dtype, device=dev)
     gnorm = torch.full(lead, torch.inf, dtype=c0.dtype, device=dev)
     rel = torch.full(lead, torch.inf, dtype=c0.dtype, device=dev)
@@ -162,10 +175,8 @@ def solve_pose(
         return ((gnorm > tol) & (torch.abs(rel) > FTOL)
                 & (rej < MAX_CONSECUTIVE_REJECT))
 
-    while k < iters:
-        active = iterating()
-        if not fixed and not bool(active.any() if lead else active):
-            break
+    def iteration(active):
+        """One iteration from the loop's state: its next state."""
         H, b = linearize(pose)
         # damping: LM diag scaling PLUS an absolute Tikhonov floor (keeps
         # null-space steps ~0 when the problem has a gauge direction)
@@ -178,32 +189,49 @@ def solve_pose(
         dn = torch.sqrt(torch.sum(delta * delta, dim=-1, keepdim=True))
         delta = delta * torch.clamp(1.0 / torch.clamp(dn, min=1e-12), max=1.0)
         cand = se3.retract(pose, delta)
-        new_cost = cost_of(cand)
-        prev_cost = cost
+        trial = cost_of(cand)
         if freeze:
             # a frozen session keeps everything (a vmapped while_loop)
             keep = lambda new, old: torch.where(active, new, old)
-            its = its + active.to(torch.int32)
+            new_its = its + active.to(torch.int32)
         else:
             keep = lambda new, old: new
+            new_its = its
+        new_lam, new_rej = lam, rej
         if use_lm:
-            accept = new_cost < cost
+            accept = trial < cost
             if freeze:
                 accept = accept & active
-            pose = se3.pose_where(accept, cand, pose)
-            cost = torch.where(accept, new_cost, cost)
-            lam = keep(torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
-                                   torch.clamp(lam * 4.0, max=1e6)), lam)
+            new_pose = se3.pose_where(accept, cand, pose)
+            new_cost = torch.where(accept, trial, cost)
+            new_lam = keep(torch.where(accept, torch.clamp(lam * 0.33, min=1e-9),
+                                       torch.clamp(lam * 4.0, max=1e6)), lam)
             # a rejected step keeps rel at +inf so lambda grows and retries
-            rel = keep(torch.where(accept, (prev_cost - new_cost)
-                                   / torch.clamp(prev_cost, min=1e-12), torch.inf),
-                       rel)
-            rej = keep(torch.where(accept, 0, rej + 1).to(torch.int32), rej)
+            new_rel = keep(torch.where(accept, (cost - trial)
+                                       / torch.clamp(cost, min=1e-12), torch.inf), rel)
+            new_rej = keep(torch.where(accept, 0, rej + 1).to(torch.int32), rej)
         else:
-            pose = se3.pose_where(active, cand, pose) if freeze else cand
-            cost = keep(new_cost, cost)
-            rel = keep((prev_cost - new_cost) / torch.clamp(prev_cost, min=1e-12), rel)
-        gnorm = keep(torch.sqrt(torch.sum(b * b, dim=-1)), gnorm)
+            new_pose = se3.pose_where(active, cand, pose) if freeze else cand
+            new_cost = keep(trial, cost)
+            new_rel = keep((cost - trial) / torch.clamp(cost, min=1e-12), rel)
+        new_gnorm = keep(torch.sqrt(torch.sum(b * b, dim=-1)), gnorm)
+        return new_pose, new_cost, new_lam, new_rel, new_rej, new_gnorm, new_its
+
+    while k < iters:
+        active = iterating()
+        if cond:
+            # iteration k as a conditional node: its body writes the state
+            with graph_cond.when(active.any() if lead else active, "solve",
+                                 kernels=False) as taken:
+                if taken:
+                    new = iteration(active)
+                    for buf, v in zip((pose.q, pose.t, cost, lam, rel, rej, gnorm, its),
+                                      (new[0].q, new[0].t) + new[1:]):
+                        buf.copy_(v)
+        elif fixed or bool(active.any() if lead else active):
+            pose, cost, lam, rel, rej, gnorm, its = iteration(active)
+        else:
+            break
         k += 1
     H_final, _ = linearize(pose)
     min_eig = eigsym.eigvalsh(H_final)[..., 0]

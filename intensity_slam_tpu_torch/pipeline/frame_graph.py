@@ -5,7 +5,7 @@ PyTorch runs eagerly, and a step is thousands of small kernels whose
 launches, not their work, set its time; a CUDA graph launches a captured
 sequence of them in one call.  Three owners share the capture and replay
 bookkeeping (`Segments`) and the state helpers (`donate`, `clone_state`,
-`pack_info`):
+`pack_info`, `warm_up`):
 
 - `FrameGraph` (here): one session's `fused_step`, the counterpart of
   `jax.jit(fused_step, donate_argnums=(0,))` (`pipeline/system.py`,
@@ -13,44 +13,49 @@ bookkeeping (`Segments`) and the state helpers (`donate`, `clone_state`,
 - `BatchedStepGraph` (here): B sessions' `slam.slam_step_batched`, the
   counterpart of `jax.jit(jax.vmap(slam_step), donate_argnums=(0,))`
   (`tools/scaling_multisession.py` of the JAX package);
-- `geometric_slam.GeoStepGraph`: the A-LOAM step, one segment, the
-  counterpart of the jitted step that the reference's `run_sequence`
-  replays under `lax.scan`.
+- `geometric_slam.GeoStepGraph`: the A-LOAM step, the counterpart of the
+  jitted step that the reference's `run_sequence` replays under `lax.scan`.
 
-`FrameGraph`'s frame is cut at its one host read (the flags that choose
-the fallback and keyframe branches, `slam.front`'s stack), so it is up to
-four graphs:
+The JAX program's decisions stay on the device, as conditional (If) nodes
+(`utils.graph_cond.when`): every solve's early exit (a node an iteration,
+`solver.solve_pose`), the capacity policy (`mapping.evict_policy`) and,
+here, the fallback and the log append.  `FrameGraph`'s frame is ONE graph:
 
     front     `slam.front`: undistortion, projection, intensity odometry,
               curvature features, the stacked flags
-    fallback  `slam.fallback`: the geometric solve, when `skip & has_prev`
+    if skip & has_prev:
+      fallback  `slam.fallback`: the geometric solve
     back      `slam.back`: mux, geometric update, ground, scan-to-map,
               velocity EMA
-    log       `fused.append_log` with no keyframe output: a non-keyframe's
-              ring-log append and its `FrameInfo`
+    if not is_keyframe:
+      log       `fused.append_log` with no keyframe output: a non-keyframe's
+                ring-log append and its packed `FrameInfo`
 
-A keyframe runs `fused.keyframe_branch` and that frame's log append eagerly
-between `back` and the end of the frame, as `fused.fused_step` does: its
-branches read the device (ROADMAP C.2).  `BatchedStepGraph` has the same
-`front`, `fallback` and `back` over a leading session axis, the flags read
-as one (3, B) read; its fallback runs on all B sessions when any needs it
-(`slam._fallback_batched`), so one graph serves every subset.
+then the flags come to the host, the frame's one read.  A keyframe runs
+`fused.keyframe_branch` and that frame's log append eagerly after the
+replay, as `fused.fused_step` does: its branches read the device (ROADMAP
+C.2).  `BatchedStepGraph`'s step is one graph of `front`, the fallback
+region when any session's flags say `skip & has_prev` (solved on all B and
+kept where they say so, `slam._fallback_batched`) and `back`, then the
+(3, B) flags read.
 
 - **Static buffers.** The frame's inputs (`xyz`, `inten`, the timestamp as
   a 0-d tensor, the RANSAC draws `ground_u`) and the whole state live in
-  buffers that every graph reads at fixed addresses.
+  buffers that the graph reads at fixed addresses; what a region hands on
+  (the fallback's delta, the log's packed `FrameInfo`) is a buffer made
+  before it.
 - **Donation.** Each segment ends by copying the state it made into the
   state buffers (`donate`), so the state is updated in place, as JAX's
   donated buffers are; `adopt(state)` copies a state made outside the
   graphs (the keyframe branch's, a loaded checkpoint's, a refine's) into
   them.  A caller that keeps `state` across a frame sees it change:
   `snapshot()` clones it.
-- **Capture.** Each graph is captured lazily, right after the first frame
-  that takes its branch has run that segment eagerly (the warm-up, whose
-  result is the frame's real one); the graphs share one memory pool (they
-  never run at once, and every tensor one hands to the next is held here).
-  While a graph is captured the solver runs its fixed-iteration form
-  (`solver.solve_pose`); `capture_s` records each capture's seconds.
+- **Capture.** The graph is captured lazily, after a frame has run every
+  part of it eagerly (the warm-up, whose result is the frame's real one):
+  `FrameGraph` at the end of the first non-keyframe frame, the others after
+  their first step; a fallback that no frame has taken yet is run once
+  eagerly and dropped first (`warm_up`).  `capture_s` records the capture's
+  seconds, `replays` the replays.
 - **Draws.** The RANSAC uniforms are drawn from the state's generator (each
   session's, in a batch) outside the graphs, into the `ground_u` buffer:
   the eager step's draws.
@@ -60,11 +65,12 @@ as one (3, B) read; its fallback runs on all B sessions when any needs it
   `GeoSlamOutput`) holds views of that clone and stays valid.
 - **Kernel counts.** A capture records the hand kernels' launches without
   making them, and every replay makes them again: the counts of the
-  wrappers in `KERNEL_WRAPPERS` are taken back after a capture and advanced
-  by each replay, so that they count the launches the card runs.
+  wrappers in `KERNEL_WRAPPERS` are taken back after a capture, and each
+  replay advances them by what the capture recorded outside the regions,
+  and inside each region that the flags read after it say ran.
 - **On the CPU** the same segments run eagerly in the same order with the
-  same in-place copies.  On the card nothing falls back: a capture or a
-  replay that fails raises.
+  same in-place copies, each region's test read on the host.  On the card
+  nothing falls back: a capture or a replay that fails raises.
 """
 
 from __future__ import annotations
@@ -75,13 +81,11 @@ import time
 import torch
 
 from ..config import SlamConfig
-from ..ops import eigsym, pallas_nn, projection
+from ..ops import projection
+from ..utils import graph_cond
+from ..utils.graph_cond import KERNEL_WRAPPERS
 from ..utils.se3 import Pose
 from . import fused, slam
-
-# the hand kernels' wrappers, each with its `launches` count
-KERNEL_WRAPPERS = (eigsym.eigh, eigsym.eigvalsh, pallas_nn.pack_targets,
-                   pallas_nn.nearest_neighbor_packed)
 
 
 def leaves(tree):
@@ -179,54 +183,109 @@ def unpack_info(raw: torch.Tensor, layout: tuple):
     return _rebuild(skeleton, lambda x: views[x] if isinstance(x, int) else x)
 
 
+def _generators(tree):
+    if isinstance(tree, torch.Generator):
+        yield tree
+    elif isinstance(tree, tuple):
+        for f in tree:
+            yield from _generators(f)
+
+
+def warm_up(fn, state) -> None:
+    """Run `fn()` once eagerly and drop its result: what a region that no
+    step has taken yet needs before it is captured (its index constants
+    made, its solver's first use done), as every other part of a graph runs
+    eagerly before its capture.  Raises if `fn` drew from a generator of
+    `state` or wrote one of its tensors."""
+    gens = list(_generators(state))
+    rng = [g.get_state() for g in gens]
+    versions = [t._version for t in leaves(state)]
+    fn()
+    if (not all(torch.equal(g.get_state(), r) for g, r in zip(gens, rng))
+            or versions != [t._version for t in leaves(state)]):
+        raise RuntimeError("a warm-up drew random numbers or wrote the state")
+
+
 class Segments:
-    """The capture and replay bookkeeping of one graph owner: its segments'
-    graphs, captured lazily and sharing one memory pool, their outputs, the
-    hand kernels' launches a replay, `capture_s` and `replays` by segment."""
+    """The capture and replay bookkeeping of one graph owner: its graphs
+    (each captured after what it records ran eagerly once, sharing one
+    memory pool), their outputs, the hand kernels' launches a replay
+    outside and inside each conditional region, `capture_s` and `replays`
+    by graph."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.capture = self.device.type == "cuda"
+        self.on_card = self.device.type == "cuda"
         self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
         self.outs: dict = {}
-        self.kernels: dict[str, list[int]] = {}     # hand-kernel launches a replay
+        self.kernels: dict[str, list[int]] = {}     # a replay's, outside its regions
+        self.region_kernels: dict[str, dict[str, list[int]]] = {}   # by region
         self.pool = None
         self.capture_s: dict[str, float] = {}
         self.replays: collections.Counter = collections.Counter()
 
-    def run(self, name: str, fn, cur: dict, *deps: str):
-        """Replay segment `name`'s graph; without one, run it eagerly on this
-        step's outputs of the segments `deps` and (on the card) capture it
-        after, on their graphs' outputs, fixed tensors.  Records the
-        segment's output in `cur`."""
-        g = self.graphs.get(name)
-        if g is not None:
-            g.replay()
-            self.replays[name] += 1
-            for w, n in zip(KERNEL_WRAPPERS, self.kernels[name]):
-                w.launches += n
-            cur[name] = self.outs[name]
-            return cur[name]
-        cur[name] = fn(*(cur[d] for d in deps))
-        if self.capture:
-            t0 = time.perf_counter()
-            g = torch.cuda.CUDAGraph()
-            before = [w.launches for w in KERNEL_WRAPPERS]
-            with torch.cuda.graph(g, pool=self.pool, capture_error_mode="thread_local"):
-                self.outs[name] = fn(*(self.outs[d] for d in deps))
-            torch.cuda.synchronize(self.device)
-            self.kernels[name] = [w.launches - b for w, b in zip(KERNEL_WRAPPERS, before)]
-            for w, b in zip(KERNEL_WRAPPERS, before):
-                w.launches = b
-            if self.pool is None:
-                self.pool = g.pool()
-            self.graphs[name] = g
-            self.capture_s[name] = time.perf_counter() - t0
-        return cur[name]
+    def capture(self, name: str, fn, regions: tuple = ()) -> None:
+        """Capture `fn()` into graph `name` and keep its output.  The hand
+        kernels' launches it recorded are taken back from the wrappers'
+        counts and kept, those inside each conditional region of `regions`
+        (`graph_cond.when`) apart; a region not named may hold none."""
+        t0 = time.perf_counter()
+        g = torch.cuda.CUDAGraph()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = graph_cond.launch_counts()
+        graph_cond.recorded.clear()
+        with graph_cond.capture(g, self.pool):
+            self.outs[name] = fn()
+        torch.cuda.synchronize(self.device)
+        total = [a - b for a, b in zip(graph_cond.launch_counts(), before)]
+        for w, b in zip(KERNEL_WRAPPERS, before):
+            w.launches = b
+        stray = {r for r, n in graph_cond.recorded.items() if any(n) and r not in regions}
+        if stray:
+            raise RuntimeError(f"graph {name!r}: hand kernels captured in regions "
+                               f"{sorted(stray)} whose replays are not counted")
+        inside = {r: graph_cond.recorded.get(r, [0] * len(total)) for r in regions}
+        self.region_kernels[name] = inside
+        self.kernels[name] = [t - sum(n[i] for n in inside.values())
+                              for i, t in enumerate(total)]
+        self.graphs[name] = g
+        self.capture_s[name] = time.perf_counter() - t0
+
+    def replay(self, name: str):
+        """Replay graph `name`, counting the launches it makes outside its
+        regions; returns its output."""
+        self.graphs[name].replay()
+        self.replays[name] += 1
+        _count(self.kernels[name])
+        return self.outs[name]
+
+    def count_regions(self, name: str, ran: dict) -> None:
+        """Count the launches inside the regions of graph `name`'s last
+        replay that ran (`ran`: region name -> whether it ran, from the
+        flags read after the replay)."""
+        for region, taken in ran.items():
+            if taken:
+                _count(self.region_kernels[name][region])
+
+    def run(self, name: str, fn):
+        """Replay graph `name`; without one, run `fn()` eagerly and (on the
+        card) capture it after.  For a graph without regions."""
+        if name in self.graphs:
+            return self.replay(name)
+        out = fn()
+        if self.on_card:
+            self.capture(name, fn)
+        return out
+
+
+def _count(launches: list[int]) -> None:
+    for w, n in zip(KERNEL_WRAPPERS, launches):
+        w.launches += n
 
 
 class FrameGraph:
-    """One session's frames through the captured segments (see the module
+    """One session's frames through the captured graph (see the module
     docstring).  `state` is the `FusedState` of buffers, read at any time;
     `step` runs a frame and returns its `FrameInfo`."""
 
@@ -249,7 +308,9 @@ class FrameGraph:
         self._ident = Pose.identity(device=self.device)
         self.segments = Segments(self.device)
         self._layout: tuple | None = None      # pack_info's
-        self.capture_s = self.segments.capture_s        # by segment
+        self._raw: torch.Tensor | None = None  # the log region's packed FrameInfo
+        self._fallback_ran = False
+        self.capture_s = self.segments.capture_s        # by graph
         self.replays = self.segments.replays
         self.last_output: slam.SlamOutput | None = None   # the last frame's
         # `slam.back` output (a graph's tensors: valid until the next frame)
@@ -275,6 +336,7 @@ class FrameGraph:
         return fr._replace(odo=s.odo)
 
     def _fallback(self, fr: slam.FrontOutput) -> None:
+        self._fallback_ran = True
         donate(self._fb, slam.fallback(self.state.slam, fr, self.cfg))
 
     def _back(self, fr: slam.FrontOutput) -> slam.SlamOutput:
@@ -283,14 +345,31 @@ class FrameGraph:
         donate(s, new)
         return out
 
-    def _log(self, out: slam.SlamOutput) -> torch.Tensor:
+    def _log(self, out: slam.SlamOutput) -> None:
         st = self.state
         iq, _ = fused.frame_quality(st.log, out, self.cfg)
         log, info = fused.append_log(st.log, out, fused.no_keyframe_output(self.device),
                                      st.backend.num_kf, iq, self.cfg)
         donate(st.log, log)
         raw, self._layout = pack_info(info)
-        return raw
+        if self._raw is None:
+            self._raw = raw         # eagerly, before any capture: the buffer
+        else:
+            self._raw.copy_(raw)
+
+    def _frame(self) -> tuple[slam.FrontOutput, slam.SlamOutput]:
+        """The frame up to the keyframe branch: `front`, the fallback
+        region, `back`, the log region."""
+        fr = self._front()
+        skip, has_prev, is_kf = fr.flags.unbind()
+        with graph_cond.when(skip & has_prev, "fallback") as taken:
+            if taken:
+                self._fallback(fr)
+        out = self._back(fr)
+        with graph_cond.when(~is_kf, "log") as taken:
+            if taken:
+                self._log(out)
+        return fr, out
 
     # ---- one frame ----------------------------------------------------------
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamp,
@@ -308,41 +387,46 @@ class FrameGraph:
         else:
             self._ground_u.copy_(ground_u)
 
-        cur: dict = {}
-        fr = self.segments.run("front", self._front, cur)
+        replayed = "frame" in self.segments.graphs
+        fr, out = self.segments.replay("frame") if replayed else self._frame()
         skip, has_prev, is_kf = fr.flags.tolist()       # the frame's one host read
-        if skip and has_prev:
-            self.segments.run("fallback", self._fallback, cur, "front")
-        out = self.segments.run("back", self._back, cur, "front")._replace(
-            host=slam.HostFlags(skip, has_prev, is_kf))
+        if replayed:
+            self.segments.count_regions("frame", {"fallback": skip and has_prev,
+                                                  "log": not is_kf})
+        out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
         self.last_output = out
         if not is_kf:
-            raw = self.segments.run("log", self._log, cur, "back")
-        else:
-            # the keyframe branch and its log append, eagerly (fused_step's)
-            iq, era_qual = fused.frame_quality(st.log, out, cfg)
-            sstate, bstate, bout = fused.keyframe_branch(
-                st.backend, st.slam, out, fr.xyz, self._inten, self._ts, era_qual, cfg)
-            self.adopt(fused.FusedState(sstate, bstate, st.log))
-            log, info = fused.append_log(st.log, out, bout, self.state.backend.num_kf,
-                                         iq, cfg)
-            donate(self.state.log, log)
-            raw, self._layout = pack_info(info)
+            info = unpack_info(self._raw.clone(), self._layout)
+            if not replayed and self.segments.on_card:
+                # every region has run eagerly now, the fallback perhaps not
+                if not self._fallback_ran:
+                    warm_up(lambda: slam.fallback(self.state.slam, fr, cfg), self.state)
+                self.segments.capture("frame", self._frame, ("fallback", "log"))
+            return info
+        # the keyframe branch and its log append, eagerly (fused_step's)
+        iq, era_qual = fused.frame_quality(st.log, out, cfg)
+        sstate, bstate, bout = fused.keyframe_branch(
+            st.backend, st.slam, out, fr.xyz, self._inten, self._ts, era_qual, cfg)
+        self.adopt(fused.FusedState(sstate, bstate, st.log))
+        log, info = fused.append_log(st.log, out, bout, self.state.backend.num_kf, iq, cfg)
+        donate(self.state.log, log)
+        raw, self._layout = pack_info(info)
         return unpack_info(raw.clone(), self._layout)
 
 
 class BatchedStepGraph:
-    """B sessions' frames (`slam.slam_step_batched`) through replayed
-    graphs: `front`, the flags read ((3, B), the step's one host read),
-    `fallback` when any session's flags say `skip & has_prev` (solved on all
-    B and kept where they say so, `slam._fallback_batched`), `back`.  The
-    batched step has no keyframe branch and no log.  `state` is the batched
+    """B sessions' frames (`slam.slam_step_batched`) through one replayed
+    graph: `front`, the fallback region when any session's flags say `skip
+    & has_prev` (solved on all B and kept where they say so,
+    `slam._fallback_batched`), `back`; then the flags read ((3, B), the
+    step's one host read).  The batched step has no keyframe branch and no
+    log.  `state` is the batched
     `SlamState` of buffers (its sessions seeded `seeds`, as
     `slam.init_batched_state` seeds them), `gen` a tuple of B generators,
     whose RANSAC draws are taken outside the graphs into the `ground_u`
     buffer; the state is updated in place.  `step` returns the frame's
     `SlamOutput` (leading B, `host` a list of B `HostFlags`), packed inside
-    the `back` graph and cloned once after it, so that it stays valid."""
+    the graph and cloned once after it, so that it stays valid."""
 
     def __init__(self, cfg: SlamConfig, seeds, device="cuda"):
         self.cfg = cfg
@@ -363,6 +447,7 @@ class BatchedStepGraph:
         self.capture_s = self.segments.capture_s
         self.replays = self.segments.replays
         self._layout: tuple | None = None      # pack_info's
+        self._fallback_ran = False
 
     def _front(self) -> slam.FrontOutput:
         s = self.state
@@ -372,6 +457,7 @@ class BatchedStepGraph:
         return fr._replace(odo=s.odo)
 
     def _fallback(self, fr: slam.FrontOutput) -> None:
+        self._fallback_ran = True
         donate(self._fb, slam._fallback_batched(self.state, fr, self.cfg))
 
     def _back(self, fr: slam.FrontOutput) -> torch.Tensor:
@@ -379,6 +465,14 @@ class BatchedStepGraph:
         donate(self.state, new)
         raw, self._layout = pack_info(out)
         return raw
+
+    def _step(self) -> tuple[slam.FrontOutput, torch.Tensor]:
+        """`front`, the fallback region (when any session takes it), `back`."""
+        fr = self._front()
+        with graph_cond.when((fr.flags[0] & fr.flags[1]).any(), "fallback") as taken:
+            if taken:
+                self._fallback(fr)
+        return fr, self._back(fr)
 
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamps,
              ground_u: torch.Tensor | None = None) -> slam.SlamOutput:
@@ -397,10 +491,15 @@ class BatchedStepGraph:
         else:
             self._ground_u.copy_(ground_u)
 
-        cur: dict = {}
-        fr = self.segments.run("front", self._front, cur)
+        replayed = "step" in self.segments.graphs
+        fr, raw = self.segments.replay("step") if replayed else self._step()
         host = [slam.HostFlags(*f) for f in zip(*fr.flags.tolist())]   # the one host read
-        if any(h.skip and h.has_prev for h in host):
-            self.segments.run("fallback", self._fallback, cur, "front")
-        raw = self.segments.run("back", self._back, cur, "front")
-        return unpack_info(raw.clone(), self._layout)._replace(host=host)
+        fell_back = any(h.skip and h.has_prev for h in host)
+        if replayed:
+            self.segments.count_regions("step", {"fallback": fell_back})
+        out = unpack_info(raw.clone(), self._layout)._replace(host=host)
+        if not replayed and self.segments.on_card:
+            if not self._fallback_ran:
+                warm_up(lambda: slam._fallback_batched(self.state, fr, self.cfg), self.state)
+            self.segments.capture("step", self._step, ("fallback",))
+        return out

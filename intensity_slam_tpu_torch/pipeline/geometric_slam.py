@@ -16,8 +16,9 @@ The reference's `lax.cond` on "has a previous frame" is not a host branch
 here: `geometric.geometric_delta` already keeps its warm start (identity on
 the first frame) when there is no previous frame, and the delta is then
 selected on the device.  So the step has no host branch, and its only host
-reads are the solvers' loop tests, which a capture drops
-(`solver.solve_pose`'s fixed form).
+reads are the solvers' loop tests, which a capture makes conditional nodes
+(`solver.solve_pose`: a node an iteration, the early exit kept on the
+device).
 
 The reference jits one step a frame and `run_sequence` replays it under
 `lax.scan`.  Here `GeoStepGraph` is the step as one CUDA graph replayed
@@ -151,7 +152,7 @@ class GeoStepGraph:
                                       device=self.device)
         self._xyz.copy_(xyz)
         self._inten.copy_(intensity)
-        raw = self.segments.run("step", self._step, {})
+        raw = self.segments.run("step", self._step)
         return unpack_info(raw.clone(), self._layout)
 
 

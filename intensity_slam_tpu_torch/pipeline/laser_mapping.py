@@ -19,8 +19,8 @@ geometric-only configuration (`pipeline.geometric_slam`):
   hash and its 27-cell k-NN gather.
 
 Host reads per step: the two pose solves' loop tests (one per
-Gauss-Newton iteration; none in the fixed form that a CUDA graph captures,
-`solver.solve_pose`); nothing else (`fit_lines`' `eigsym.eigh` reads no
+Gauss-Newton iteration; under a CUDA graph's capture a conditional node
+each, `solver.solve_pose`); nothing else (`fit_lines`' `eigsym.eigh` reads no
 status back).  The prior block's Jacobian is `mapping._pose_prior`'s central
 difference (the reference differentiates `solver.pose_prior` in forward
 mode; the numbers agree within 2e-5).

@@ -26,10 +26,12 @@ window 0 = inert).
 Host reads per step: the pose solve's own (one per iteration, none while
 a CUDA graph is being captured, `solver.solve_pose`); nothing else (the line
 fit's eigensolver, `ops.eigsym`, reads no status).  The JAX package's
-`lax.cond` on the map's point count (the capacity policy) is a masked pass
-here: `grid_hash.evict_far(..., when=over)` runs every frame and keeps
-everything unless the count is over its threshold, so the count never comes
-to the host.
+`lax.cond` on the map's point count (the capacity policy, `evict_policy`)
+is a masked pass eagerly: `grid_hash.evict_far(..., when=over)` runs every
+frame and keeps everything unless the count is over its threshold, so the
+count never comes to the host; under capture it is a conditional node
+(`utils.graph_cond.when`) around the eviction, which a replay runs only
+when the count is over.
 
 `mapping_step` also advances B sessions at once: a state from
 `init_state(cfg, batch=(B,))` and inputs with a leading B.  The host reads
@@ -46,7 +48,7 @@ from ..config import SlamConfig
 from ..ops import features as feat_ops
 from ..ops import eigsym, grid_hash, solver
 from ..ops.voxel import voxel_downsample
-from ..utils import index, se3
+from ..utils import graph_cond, index, se3
 from ..utils.se3 import Pose
 
 
@@ -370,12 +372,8 @@ def mapping_step(
     # (rolling-cube-map recentering, `laserMapping.cpp:330-565`)
     S, W = ground_map.way_keys.shape[-2:]
     thresh = int(mc.map_evict_frac * (S * W * 8))
-    ground_map = grid_hash.evict_far(
-        ground_map, pose.t, mc.map_keep_radius,
-        when=ground_map.num_points > thresh)
-    corner_map = grid_hash.evict_far(
-        corner_map, pose.t, mc.map_keep_radius,
-        when=corner_map.num_points > thresh)
+    ground_map = evict_policy(ground_map, pose.t, mc.map_keep_radius, thresh)
+    corner_map = evict_policy(corner_map, pose.t, mc.map_keep_radius, thresh)
 
     # sliding-window ring update: this frame's features + refined pose enter
     # the window (`:203` cur_keyframe pushed after the solve)
@@ -419,6 +417,31 @@ def mapping_step(
         corner_ds_mask=c_mask,
     )
     return new_state, out
+
+
+def evict_policy(m: grid_hash.VoxelHashMap, center: torch.Tensor, radius: float,
+                 thresh: int, cond: bool | None = None) -> grid_hash.VoxelHashMap:
+    """The capacity policy on one map (B sessions' maps, `center` (B, 3)):
+    evict the points farther than `radius` from `center` where the map
+    holds more than `thresh` points, the reference's `lax.cond`.  Eagerly
+    the masked pass; in the conditional form (`cond`, by default while the
+    stream is captured) the eviction is a conditional node on whether any
+    map is over (the mask kept inside for a batch) that writes `m`'s
+    tensors in place, so `m` must be a map no one else holds (the map
+    `grid_hash.insert` returns).  Equal contents either way."""
+    over = m.num_points > thresh
+    if cond is None:
+        cond = graph_cond.capturing(center.device)
+    if not cond:
+        return grid_hash.evict_far(m, center, radius, when=over)
+    batched = over.dim() > 0
+    with graph_cond.when(over.any() if batched else over, "evict", kernels=False) as taken:
+        if taken:
+            kept = grid_hash.evict_far(m, center, radius, when=over if batched else None)
+            for buf, v in zip(m, kept):
+                if v is not buf:
+                    buf.copy_(v)
+    return m
 
 
 def apply_correction(state: MappingState, corr: Pose) -> MappingState:

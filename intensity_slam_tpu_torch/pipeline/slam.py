@@ -22,7 +22,9 @@ branch here: `skip`, `has_prev` and `is_keyframe` come to the host in ONE
 read per frame, and `SlamOutput.host` holds them for the caller.  The step
 is three functions around that read, `front` (up to the flags), `fallback`
 (the geometric solve the flags may ask for) and `back` (the rest):
-`pipeline.frame_graph` captures each of them into a CUDA graph.
+`pipeline.frame_graph` captures them into one CUDA graph, the fallback
+behind a conditional node on `skip & has_prev` (the `lax.cond` kept on the
+device), and reads the flags after the replay.
 
 `slam_step_batched` advances B independent sessions (`init_batched_state`)
 one frame in one launch sequence, session by session what `jax.vmap` of the

@@ -8,7 +8,8 @@ reference's process/thread architecture maps onto the host runtime so:
   TCPROS subscriber + spinner decode      C++ Prefetcher / WirePrefetcher
                                           thread (scanlog)
   ascanRegistration front-end (10 Hz)     caller thread: the fused step
-                                          through `FrameGraph` (CUDA graphs)
+                                          through `FrameGraph` (one CUDA
+                                          graph replay a non-keyframe)
   loop/factor threads (100 Hz / 10 Hz)    the keyframe branch of fused_step
   mutex-guarded deques + frame drop       native Channel(drop_oldest) to
                                           the pose-writer thread
@@ -18,7 +19,8 @@ The dispatch thread (the caller's) uploads each frame and steps it through
 a `pipeline.frame_graph.FrameGraph`, exactly as `SlamSystem.process` does
 (the counterpart of the reference's `jax.jit(fused_step,
 donate_argnums=(0,))`: `state` is updated in place), and reads nothing from
-the device of its own: the host syncs it makes are the step's.
+the device of its own: the host syncs it makes are the step's (one a
+non-keyframe frame after the capture, the flags read).
 
 - Uploads go through a ring of `depth` pinned host slots with
   `non_blocking` copies; a CUDA event recorded after each copy guards its

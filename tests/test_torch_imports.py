@@ -55,7 +55,8 @@ def test_guard_sees_the_package():
                 "pipeline/laser_mapping.py", "parallel/multiproc.py",
                 "parallel/dist_ba.py", "parallel/ba_builder.py", "parallel/dist_pgo.py",
                 "parallel/dist_backend.py", "parallel/live_demo.py", "utils/device.py",
-                "pipeline/frame_graph.py", "ops/eigsym.py", "utils/nvcc.py"):
+                "pipeline/frame_graph.py", "ops/eigsym.py", "utils/nvcc.py",
+                "utils/graph_cond.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
 
 

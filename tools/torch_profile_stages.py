@@ -40,8 +40,9 @@ On the card an eleventh row, `FULL frame (graphs)`, times the probe
 frame, at half the keyframe interval after the last keyframe (so not a
 keyframe: the two `fused_step` probes are, see their probe lines), as
 `SlamSystem` runs it: through
-`pipeline.frame_graph.FrameGraph`, its segments replayed from CUDA graphs
-(captured at the first call) over a state updated in place, which is set
+`pipeline.frame_graph.FrameGraph`, the frame replayed from one CUDA graph
+(captured at the first call; its solves, fallback, log append and capacity
+policy behind conditional nodes) over a state updated in place, which is set
 back to the probe's state before every call, outside the timing and the
 trace.  A replay dispatches no aten op, so the row's FLOPs are the
 `fused_step (non-keyframe)` row's count.  Beside it a twelfth row,

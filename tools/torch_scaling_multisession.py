@@ -11,9 +11,9 @@ world, `--frames` (48) frames at 0.4 m a frame, rendered once on the
 device; B streams of it, stream b rolled by b frames (`roll(-b)`) so that
 the sessions' states differ.  For each B the step runs as the JAX tool
 runs it, compiled: `pipeline.frame_graph.BatchedStepGraph`, the batched
-step replayed from CUDA graphs over a state updated in place (the
+step replayed from one CUDA graph over a state updated in place (the
 counterpart of `jax.jit(step, donate_argnums=(0,))`); it runs `--warm` (8)
-frames (the first captures the graphs), then the rest are timed, the
+frames (the first captures the graph), then the rest are timed, the
 device synchronized at the end of the run: total scans/s = B * timed
 frames / seconds.  Then, on the card, one more step is traced with
 `torch.profiler` (device kernels a step, the device's busy share: summed
