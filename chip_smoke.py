@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result lines are printed):
 
 1. build: compile the CUDA kernels from the checkout, one nvcc for each
    source started together (`csrc/nn.cu`, the nearest-neighbour kernels;
-   `csrc/eigsym.cu`, the Jacobi eigensolver; `csrc/graph_cond.cu`, the
-   conditional nodes' handle kernel), and print nvcc's
-   register/shared-memory report and the build time;
+   `csrc/eigsym.cu`, the Jacobi eigensolver; `csrc/svd3.cu`, the ICP's 3x3
+   SVD; `csrc/graph_cond.cu`, the conditional nodes' handle kernel), and
+   print nvcc's register/shared-memory report and the build time;
 2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
    their plain PyTorch versions at the ICP shapes (P = 2048 sources,
    M = 6144 targets) on three input sets — random clouds with duplicated
@@ -22,7 +22,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    sources, the pack, an empty kernel through the same ctypes route (the
    launch floor), the plain versions and `torch.cdist(...).min(1)` (a
    yardstick the port never calls); and the search's device-side duration
-   with `torch.profiler`;
+   with `torch.profiler`.  Then the 3x3 SVD kernel (`svd3_kernel`,
+   `ops/svd3.py`) against `torch.linalg.svd` and the reference's reflection
+   rule on random, rank-2, rank-1, repeated-value, reflected and all-zero
+   covariances and on the 32 an ICP alignment of the keyframe clouds hands
+   it: rotations U Vt within 1e-4 where unique, a rotation everywhere
+   (|R R^T - I| and |det R - 1| under 1e-5), U S Vt within 1e-5 of the
+   input, two launches bit-equal; timed at the ICP's shape (one matrix)
+   beside its plain version and `torch.linalg.svd` (also `--phase svd`);
 3. grid: the voxel grid-hash map at full width (32768 sets x 4 ways x 8
    slots): one rendered frame, downsampled at the ground and at the corner
    voxel size, and one 2 097 152-point rebuild batch (the first of the two
@@ -54,9 +61,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    rebuild at the accepted loop only, a finite 38-row `trajectory()` whose
    end lies within 0.5 m of the rendered end (the stage times come from a
    run of the eager `fused_step`: a synchronize cannot be captured);
-6b. graph: the compiled frame (`pipeline/frame_graph.py`: `SlamSystem`'s
-   non-keyframe frame as one replayed CUDA graph over a state updated in
-   place, its solves' early exits, fallback, log append and capacity policy
+6b. graph: the compiled frame (`pipeline/frame_graph.py`: every frame of
+   `SlamSystem`, keyframes and accepted loops included, as one replayed
+   CUDA graph over a state updated in place, its solves' early exits,
+   fallback, capacity policy and keyframe branch (its compaction,
+   verification, acceptance and map rebuild, the PCM vote's growth steps)
    behind conditional (If) nodes, `utils/graph_cond.py`).  First the Jacobi
    eigensolver kernels
    (`ops/eigsym.py`) against `torch.linalg.eigh`/`eigvalsh` at their three
@@ -83,20 +92,31 @@ Phases (any failure exits non-zero before the result lines are printed):
    of a chain of 100 skipped ones beside the host read it replaces.  Then
    the slice at full width through `SlamSystem` (a timed run, a run with
    host syncs counted and solver iterations read after every frame, and
-   the first 12 frames or so again with six non-keyframe frames traced by
+   the first 6 frames again with three non-keyframe frames traced by
    `torch.profiler`: a trace costs seconds; the same traced frames with
    the solves captured in the fixed form) against two runs of the eager
    `fused_step` loop: the same keyframes, skips and loop, positions within
    the eager runs' spread, the odometry's and the mapping's solver
-   iterations equal to eager on every frame, on every non-keyframe frame
-   after capture exactly one host sync (the flags read in
-   `FrameGraph.step`) and one graph replay, and on the traced frames one
+   iterations equal to eager on every frame, every frame after the first
+   (which runs eagerly, warms the keyframe regions up and captures the
+   graph) replayed, keyframes and the accepted loop included, with exactly
+   one host sync (the flags read in `FrameGraph.step`) and one graph
+   replay, and on the traced frames (three non-keyframes, one keyframe) one
    `cudaGraphLaunch` call and at most 8 other launch calls (input copies,
    timestamp fill, draws, the flags read, `FrameInfo` clone), the
-   launches the wrappers counted against the kernels in the trace by name;
-   printed: ms and device us per non-keyframe frame eager, graphed and
-   graphed in the fixed form, capture seconds, If nodes a replay, peak
-   memory.  Then 8 constant-intensity frames at full width: the fallback
+   launches the wrappers counted against the kernels in the trace by name,
+   every kernel of the path launched; printed: ms per non-keyframe, per
+   keyframe and at the accepted loop eager and graphed, device us per
+   non-keyframe frame eager, graphed and graphed in the fixed form and of
+   the traced keyframe, capture seconds and the warm-up's seconds by
+   region (shared by later owners of the same configuration in the
+   process: `frame_graph.warmups`), If nodes a replay and on each keyframe
+   replay, peak memory.  Then the slice with the store cut to 8 keyframes
+   (`max_keyframes`), so that its ninth keyframe compacts the store inside
+   the replayed graph: the same decisions and compactions as its eager
+   `fused_step` run, the compact region run by the flags read exactly on
+   the compacting frames, each a replay, positions and the log within the
+   eager spread.  Then 8 constant-intensity frames at full width: the fallback
    region taken in the replays, the eager run's decisions and solver
    iterations, and two traced frames' launches against their trace.
    Kernel launches are counted over the timed graph run (`graph`; a
@@ -132,9 +152,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    mode.  Checked: 420 frames, an accepted loop from the second lap to the
    first, 420 live TUM rows, no dropped pose write, a finite 420-row
    `trajectory()` within 1.5 m ATE RMSE of the rendered poses, both kernels
-   launched, and no host sync of the dispatch thread outside `fused_step`'s
-   modules.  Printed: keyframes, skips, loops, ms per frame, scans/s, the
-   syncs by call site, peak memory, kernel launches;
+   launched, no host sync of the dispatch thread outside `fused_step`'s
+   modules, and exactly one on every frame after the first (the flags
+   read: keyframes and accepted loops replay the graph too).  Printed:
+   keyframes, skips, loops, ms per frame and at each accepted loop, the
+   warm-up's and the capture's seconds, scans/s, the syncs by call site,
+   peak memory, kernel launches;
 11. refine: the distributed back-end (`parallel/`) at full width, on the
    circuit's keyframe store left by the stream phase (K = 1024 keyframe
    slots x F = 1024 features: 1 048 576 BA observation and landmark slots, a
@@ -177,9 +200,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    keyframes and equal final positions; 32 frames, cut from 64 to keep the
    phase under 150 s), `torch_slope_probe --frames 48`
    (the frame classes must sum to 47), `torch_profile_stages --reps 5`
-   (every one of the ten stages and the two graphed rows, `FULL frame
-   (graphs)` and `geo_slam_step (graphs)`, must show device time and a
-   kernel count),
+   (every one of the ten stages and the four graphed rows, `FULL frame
+   (graphs)`, `geo_slam_step (graphs)`, `FULL keyframe (graphs)` and `FULL
+   keyframe, accepted loop (graphs)`, must show device time and a kernel
+   count),
    `torch_scaling_bench --devices 1` (BA solve time against size),
    `torch_scaling_projection --reps 2` and `torch_multiproc_product` (one
    NCCL rank, product scale: 1024 nodes and 200 loop edges, the PGO and
@@ -236,8 +260,9 @@ The line before the last is the per-kernel JSON record; the last line is
 
     python3 chip_smoke.py --phase NAME
 
-with NAME one of kernel, grid, small, fallback, slice, graph, eig (the
-graph phase's eigensolver part), cond (its If-node part), stream-small,
+with NAME one of kernel, svd (the kernel phase's SVD part), grid, small,
+fallback, slice, graph, eig (the graph phase's eigensolver part), cond (its
+If-node part), stream-small,
 checkpoint, geoslam, stream, refine, tools, measure, multisession
 
 builds the kernels and runs that one phase alone (no result lines; refine
@@ -277,8 +302,8 @@ import torch.distributed as dist
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import (eigsym, grid_hash, pallas_nn, projection, solver,
-                                          voxel)
+from intensity_slam_tpu_torch.ops import (eigsym, grid_hash, icp, pallas_nn, projection,
+                                          solver, svd3, voxel)
 from intensity_slam_tpu_torch.parallel import ba_builder, dist_ba, dist_backend, multiproc
 from intensity_slam_tpu_torch.pipeline import (frame_graph, fused, geometric_slam, loop,
                                                mapping, odometry, slam)
@@ -304,18 +329,7 @@ def check(cond, msg: str) -> None:
 
 def loop_trajectory(n_out=14, n_turn=8, speed=0.4) -> se3.Pose:
     """tests/test_loop_closure.py:18-36: forward along +x, U-turn, back."""
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0])
-    pose = se3.Pose(ident, torch.tensor([0.0, 0.0, 0.8]))
-    fwd = se3.Pose(ident, torch.tensor([speed, 0.0, 0.0]))
-    turn = se3.Pose(se3.so3_exp(torch.tensor([0.0, 0.0, math.pi / n_turn])),
-                    torch.tensor([speed * 0.5, 0.0, 0.0]))
-    qs, ts = [], []
-    for step, n in ((fwd, n_out), (turn, n_turn), (fwd, n_out + 2)):
-        for _ in range(n):
-            qs.append(pose.q)
-            ts.append(pose.t)
-            pose = se3.compose(pose, step)
-    return se3.Pose(torch.stack(qs), torch.stack(ts))
+    return synthetic.out_and_back_trajectory(n_out, n_turn, speed, device="cpu")
 
 
 def slice_config(base: config.SlamConfig) -> config.SlamConfig:
@@ -393,6 +407,7 @@ def frame_summary(infos) -> dict:
                 fitness=float(i.icp_fitness))
            for k, i in enumerate(infos) if frames[k][1]]
     return dict(frames=frames, kfs=kfs,
+                compacted=[k for k, i in enumerate(infos) if bool(i.compacted)],
                 pose_t=torch.stack([i.pose_t for i in infos]).cpu())
 
 
@@ -422,6 +437,16 @@ def run_system(cfg, xyz, inten, device, count_syncs=False) -> dict:
         map_points_after=[int(a) for a in after],     # after the frame's rebuild
         traj=system.trajectory(),
         syncs=sum(sync_sites.values()), sync_sites=sync_sites)
+
+
+def warmup_text(fg) -> str:
+    """A graph owner's warm-up seconds by region, or those of the earlier
+    owner whose warm-up it shared (`frame_graph.warmups`)."""
+    if fg.warmup_s:
+        return str({k: round(v, 4) for k, v in fg.warmup_s.items()})
+    first = next(v for k, v in frame_graph.warmups.items() if k[:2] == (fg.device, fg.cfg))
+    return (f"none (shared: an earlier owner's of the same configuration in this "
+            f"process took {({k: round(v, 4) for k, v in first.items()})})")
 
 
 def run_fused(cfg, xyz, inten, device, traced=(), calls=None) -> dict:
@@ -464,9 +489,9 @@ def frame_trace(enabled: bool, host: bool = True):
     if not enabled:
         yield res
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
-    with profile(activities=acts) as prof:
+    with devices.profile(acts) as prof:
         yield res
     gpu = [e for e in prof.events() if e.device_type.name == "CUDA"]
     res["device_us"] = sum(e.time_range.elapsed_us() for e in gpu)
@@ -559,12 +584,12 @@ def kernel_device_us(fn, name: str | None, n: int = 33, traces: int = 3,
     `n`) of the launches.  CUPTI now and then drops a launch from a trace
     (32 of 33 seen; the eigensolver's 30 of 33 in every trace of a whole
     run), so up to `traces` traces are taken."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with devices.profile([ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
@@ -649,6 +674,7 @@ def kernel_phase(dev, cfg) -> dict:
     print(f"  launch floor: an empty kernel through the same ctypes route "
           f"{floor_ms:.4f} ms (33 back to back: {floor_batch_ms:.4f} ms each)")
     return dict(
+        svd3=svd_kernel_phase(dev, cfg),
         nn=dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound, bound_by=bound_by, batch_ms=batch_ms,
                 device_ms=device_us / 1e3, floor_ms=floor_ms),
@@ -657,9 +683,110 @@ def kernel_phase(dev, cfg) -> dict:
                   device_ms=pack_device_us / 1e3, floor_ms=floor_ms))
 
 
+SVD_ROT_TOL = 1e-4       # |R - R_plain| entrywise, float32, where R is unique
+SVD_ORTHO_TOL = 1e-5     # |R R^T - I| and |det R - 1| of every rotation
+
+
+def svd_sets(dev, cfg) -> dict:
+    """name -> ((n, 3, 3) float32 covariances, whether their rotation is
+    unique): random; rank 2 (a planar overlap); rank 1 (a line: any turn
+    about it fits); repeated singular values; reflected (det(U V^T) < 0);
+    all zero (an iteration with no correspondences); and the 32 the ICP
+    hands the kernel when it aligns the kernel phase's keyframe clouds."""
+    g = torch.Generator().manual_seed(3)
+    n = 256
+
+    def orth():
+        q, _ = torch.linalg.qr(torch.randn(n, 3, 3, generator=g, dtype=torch.float64))
+        return q * torch.sign(torch.linalg.det(q))[:, None, None]
+
+    def build(sv, flip=False):
+        U, V = orth(), orth()
+        if flip:
+            U[:, :, 2] *= -1
+        return U @ torch.diag_embed(sv) @ V.mT
+
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(n, generator=g, dtype=torch.float64)
+    z = torch.zeros(n, dtype=torch.float64)
+    sets = {
+        "random": (torch.randn(n, 3, 3, generator=g, dtype=torch.float64), True),
+        "rank2": (build(torch.stack([u(1, 5), u(0.1, 1), z], 1)), True),
+        "rank1": (build(torch.stack([u(1, 5), z, z], 1)), False),
+        "repeated": (build(torch.stack([2 + z, 1 + z, 1 + z], 1)), True),
+        "reflected": (build(torch.stack([u(2, 5), u(1, 2), u(0.01, 0.5)], 1), True), True),
+        "zero": (torch.zeros(4, 3, 3, dtype=torch.float64), True),
+    }
+    sets = {k: (v.float().to(dev), uq) for k, (v, uq) in sets.items()}
+    src, tgt, mask = kernel_sets(dev, cfg)["keyframe_clouds"]
+    with recorded_inputs(svd3, "svd3") as covs:
+        icp.icp_align(src, torch.ones_like(src[:, 0], dtype=torch.bool), tgt, mask,
+                      se3.Pose.identity(device=dev))
+    sets["icp"] = (torch.stack(covs), True)
+    return sets
+
+
+def svd_bound_ms(batch: int) -> tuple[float, str]:
+    """Least time for `batch` 3x3 SVDs on this card: 36 B read and 84 B
+    written a matrix over the HBM rate, against at most 8 sweeps x 3
+    rotations x about 60 FP32 operations and about 100 more a matrix over
+    the FP32 peak; the bytes bound either way."""
+    t_bytes = batch * (36 + 84) / PEAK_BYTES_PER_S
+    t_ops = batch * (svd3.SWEEPS * 3 * 60 + 100) / PEAK_FP32_FLOPS
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def svd_kernel_phase(dev, cfg) -> dict:
+    """The 3x3 SVD kernel (`ops/svd3.py`, `csrc/svd3.cu`) against
+    `torch.linalg.svd` and the reference's reflection rule (`svd3_plain`)
+    on `svd_sets`: the rotations U Vt, not U and V, whose signs are free;
+    where the rotation is not unique, that it is one.  Then its times at the
+    ICP's shape, one matrix."""
+    worst = 0.0
+    for name, (a, unique) in svd_sets(dev, cfg).items():
+        U, S, Vt = svd3.svd3(a)
+        pU, _, pVt = svd3.svd3_plain(a)
+        R, Rp = U @ Vt, pU @ pVt
+        err = float((R - Rp).abs().max())
+        eye = torch.eye(3, device=dev)
+        ortho = max(float((R @ R.mT - eye).abs().max()),
+                    float((torch.linalg.det(R) - 1).abs().max()))
+        refac = float(((U * S[..., None, :]) @ Vt - a).abs().max()
+                      / a.abs().max().clamp(min=1e-30))
+        again = svd3.svd3(a)
+        repeat = all(torch.equal(x, y) for x, y in zip(again, (U, S, Vt)))
+        torch.cuda.synchronize()
+        print(f"svd3 set {name}: {a.shape[0]} matrices, rotation against plain "
+              f"{err:.3g}{'' if unique else ' (not unique)'}, |R R^T - I|, |det R - 1| "
+              f"{ortho:.3g}, |U S Vt - A| / max|A| {refac:.3g}, finite "
+              f"{bool(torch.isfinite(R).all())}, repeat bit-equal {repeat}")
+        check(bool(torch.isfinite(R).all()), f"svd3: non-finite rotation on {name}")
+        check(ortho < SVD_ORTHO_TOL, f"svd3: not a rotation on {name}: {ortho:.3g}")
+        check(refac < 1e-5, f"svd3: U S Vt is {refac:.3g} from the input on {name}")
+        check(repeat, f"svd3: two launches differ on {name}")
+        if unique:
+            check(err < SVD_ROT_TOL, f"svd3: rotation {err:.3g} from plain on {name}")
+            worst = max(worst, err)
+        if name == "zero":
+            check(torch.equal(R, eye.expand_as(R)), "svd3: the zero matrix's rotation")
+    one = svd_sets(dev, cfg)["icp"][0][0].contiguous()
+    ms = time_cuda(lambda: svd3.svd3(one))
+    plain_ms = time_cuda(lambda: svd3.svd3_plain(one))
+    lib_ms = time_cuda(lambda: torch.linalg.svd(one))
+    device_us = kernel_device_us(lambda: svd3.svd3(one), "svd3_kernel")
+    bound, bound_by = svd_bound_ms(1)
+    print(f"  svd3_kernel at the ICP's shape, one 3x3 float32 (CUDA events, median of "
+          f"single calls): {ms:.4f} ms, device-side {device_us:.2f} us (torch.profiler, "
+          f"median of 33), plain (svd + reflection rule) {plain_ms:.4f} ms, "
+          f"torch.linalg.svd {lib_ms:.4f} ms, bound {bound:.9f} ms ({bound_by}); worst "
+          f"rotation error {worst:.3g} (tolerance {SVD_ROT_TOL})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=bound_by, device_ms=device_us / 1e3)
+
+
 # the hand kernels' wrappers by the key of their record (`KERNELS`)
 WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
-            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "cond": graph_cond.set_handle}
+            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "svd3": svd3.svd3,
+            "cond": graph_cond.set_handle}
 
 
 def reset_launches() -> None:
@@ -682,12 +809,12 @@ def decisions(r: dict):
 def device_kernels(fn) -> int:
     """Device kernels (and copies) that one call of `fn` launches, from a
     `torch.profiler` trace."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
     count = 0
     for _ in range(3):          # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with devices.profile([ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         count = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
@@ -1086,7 +1213,7 @@ def run_stream(runner, log, count_syncs=False, preloaded=False, **kw) -> dict:
     dispatch ends (`on_frame`), so that the counts cover the dispatch loop
     and not the stats read after it.  Nothing is read from the device in
     the loop; the frames' scalars are read after the run."""
-    stamps, infos, at_last = [], [], collections.Counter()
+    stamps, infos, at_last, per_frame = [], [], collections.Counter(), []
 
     with sync_counter(count_syncs) as sites:
         def on_frame(idx, info):
@@ -1094,6 +1221,7 @@ def run_stream(runner, log, count_syncs=False, preloaded=False, **kw) -> dict:
             infos.append(info)
             at_last.clear()
             at_last.update(sites)
+            per_frame.append(sum(dispatch_sites(at_last).values()))
 
         t0 = time.perf_counter()
         go = runner.run_preloaded if preloaded else runner.run
@@ -1107,7 +1235,8 @@ def run_stream(runner, log, count_syncs=False, preloaded=False, **kw) -> dict:
                 fitness=float(i.icp_fitness))
            for k, i in enumerate(infos) if frames[k][1]]
     return dict(stats=stats, frames=frames, kfs=kfs, t_frame=t_frame, wall=wall,
-                sync_sites=at_last, all_sync_sites=sites)
+                sync_sites=at_last, all_sync_sites=sites,
+                frame_syncs=[b - a for a, b in zip([0] + per_frame[:-1], per_frame)])
 
 
 def dispatch_sites(sites: collections.Counter) -> collections.Counter:
@@ -1193,9 +1322,20 @@ def stream_phase(dev) -> dict:
     print(f"  the runner against SlamSystem.process on the circuit's first 40 frames "
           f"(median ms per frame after the first, in run order): "
           f"{[(k, round(v, 3)) for k, v in overhead]}")
+    f_syncs = r["frame_syncs"]
+    odd = [(k, v) for k, v in enumerate(f_syncs) if k and v != 1]
+    t_acc = [1e3 * r["t_frame"][a["frame"]] for a in acc]
     print(f"  dispatch-thread host syncs {sum(disp.values())} in {n} frames = "
-          f"{sum(disp.values()) / n:.2f} per frame; by call site:")
+          f"{sum(disp.values()) / n:.2f} per frame ({f_syncs[0]} on the first frame, "
+          f"which runs eagerly, warms the keyframe regions up and captures the graph; "
+          f"{sum(f_syncs[1:]) / (n - 1):.2f} per frame after it; frames after it with "
+          f"another count {odd}); by call site:")
     print_sync_sites(disp)
+    print(f"  accepted loops through the graph: ms {[round(t, 3) for t in t_acc]} (the "
+          f"first {t_acc[0] if t_acc else float('nan'):.3f}, the later ones' median "
+          f"{statistics.median(t_acc[1:]) if len(t_acc) > 1 else float('nan'):.3f}); "
+          f"warm-up s before the capture by region {warmup_text(runner.graph)}, capture s "
+          f"{({k: round(v, 4) for k, v in runner.graph.capture_s.items()})}")
     print(f"  syncs on other threads: {dict(others)}")
     check(stats["frames"] == n, f"stream ran {stats['frames']} frames")
     check(len(tum_rows) == n, f"the live TUM file has {len(tum_rows)} rows")
@@ -1207,6 +1347,8 @@ def stream_phase(dev) -> dict:
     check(launches["nn"] >= 1 and launches["pack"] >= 1,
           f"the stream run did not launch both kernels: {launches}")
     check(not in_runtime, f"the dispatch thread synced outside fused_step: {in_runtime}")
+    check(f_syncs and not odd and len(f_syncs) == n,
+          f"frames after the first made other than one host sync: {odd}")
     check(ate(est) < 1.5, f"ATE RMSE {ate(est):.3f} m over the circuit")
     return dict(launches=launches, runner=runner, gt=gt, cfg=cfg, ate=ate(est))
 
@@ -1827,9 +1969,9 @@ def profile_phase(dev) -> None:
     print_stage_rows([("process", r["t_step"])]
                      + sorted(stage.items(), key=lambda kv: -sum(kv[1])))
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with devices.profile([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_system(cfg, xyz, inten, dev)
         torch.cuda.synchronize()
@@ -2023,7 +2165,7 @@ def measure_phase(dev) -> dict:
         print(f"measure: profile {r['stage']}: host {r['host_ms']:.3f} ms, device "
               f"{r['device_us']} us, {r['kernels']} kernels, bound {r['bound_us']} us "
               f"({r['bound_by']})")
-    check(len(rows) == 12 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
+    check(len(rows) == 14 and all(isinstance(r["device_us"], float) and r["device_us"] > 0
                                   and isinstance(r["kernels"], int) and r["kernels"] > 0
                                   for r in rows),
           f"measure: profile rows without device time or kernels: {rows}")
@@ -2100,7 +2242,7 @@ def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False, graphs=False):
     F = xb.shape[0]
     sites, kernels, tests, by_step = collections.Counter(), collections.Counter(), 0, []
     dev_us = None
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     for k in range(F):
         last = count and k == F - 1
         counted = count and 0 < k < F - 1
@@ -2108,7 +2250,7 @@ def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False, graphs=False):
         with contextlib.ExitStack() as stack:
             step_sites = stack.enter_context(sync_counter(counted))
             step_tests = stack.enter_context(solver_loop_tests())
-            prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+            prof = (stack.enter_context(devices.profile([ProfilerActivity.CUDA]))
                     if last else None)
             _sync_untracked(dev)
             t0 = time.perf_counter()
@@ -2309,7 +2451,8 @@ EIG_VAL_TOL = 1e-5       # eigenvalue error, relative to the largest |eigenvalue
 EIG_VEC_TOL = 1e-4       # 1 - |dot| of an eigenvector against the plain one's,
 EIG_GAP_REL = 1e-3       # where its eigengap is above this (relative)
 GRAPH_MAX_OTHER = 8      # other launches: input copies, timestamp, draws, info
-GRAPH_TRACED = 6         # non-keyframe frames traced (a trace costs seconds)
+COMPACT_KEYFRAMES = 8    # the store's size in the graph phase's compaction part
+GRAPH_TRACED = 3         # non-keyframe frames traced (a trace costs seconds)
 FALLBACK_FRAMES = 8
 
 
@@ -2622,7 +2765,7 @@ def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None,
             row = dict(ms=1e3 * dt, sites=collections.Counter(sites), **tr,
                        captured=len(fg.capture_s) > n_graphs,
                        replays=sum(fg.replays.values()) - replays,
-                       fell_back=h.skip and h.has_prev,
+                       fell_back=h.skip and h.has_prev, regions=dict(fg.last_flags),
                        launches={key: n - before[key] for key, n in read_launches().items()})
             if its:
                 mine = [c for c in calls[n_calls:] if not c[2]]
@@ -2771,9 +2914,10 @@ def cond_phase(dev) -> dict:
 
 
 def graph_phase(dev) -> dict:
-    """The non-keyframe frame as one replayed CUDA graph (`FrameGraph`,
-    through `SlamSystem`) against the eager `fused_step`, at full width;
-    first the eigensolver kernels and the solver's chain of If nodes."""
+    """Every frame as one replayed CUDA graph (`FrameGraph`, through
+    `SlamSystem`: keyframes, the verification and the accepted loop inside
+    it) against the eager `fused_step`, at full width; first the
+    eigensolver kernels and the solver's chain of If nodes."""
     t_phase = time.perf_counter()
     kern = eig_kernel_phase(dev)
     kern["cond"] = cond_phase(dev)
@@ -2798,9 +2942,12 @@ def graph_phase(dev) -> dict:
     eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     lap("eager runs")
     nonkf = [k for k, (_, kf) in enumerate(e1["frames"]) if not kf]
-    # the non-keyframe frames traced: from the third on (the first
-    # non-keyframe frame captures the graph)
+    kf_frames = [k for k in range(n) if k not in nonkf]
+    loop_frames = [a["frame"] for a in e1["kfs"] if a["accepted"]]
+    # the frames traced: non-keyframe frames from the third on and the
+    # first keyframe after the capture (the first frame captures the graph)
     probe = [k for k in nonkf if k >= 2][:GRAPH_TRACED]
+    kf_probe = [k for k in kf_frames if k >= 2][:1]
     e2, e_its = fused_run_iterations(cfg, xyz, inten, dev, traced=set(probe[:3]))
     lap("eager, traced in part, iterations")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2808,10 +2955,12 @@ def graph_phase(dev) -> dict:
     ga = run_graphs(cfg, xyz, inten, dev)
     launches = read_launches()
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    graph_reserved = torch.cuda.memory_reserved(dev) / 2 ** 20
     lap("graph run")
     gs = run_graphs(cfg, xyz, inten, dev, syncs=True, its=True)
     lap("graph syncs and iterations")
-    gt = run_graphs(cfg, xyz, inten, dev, traced=set(probe), frames=probe[-1] + 1)
+    traced = sorted(probe + kf_probe)
+    gt = run_graphs(cfg, xyz, inten, dev, traced=set(traced), frames=traced[-1] + 1)
     lap("graph traced")
     fixed_solve = solver.solve_pose
     solver.solve_pose = functools.partial(fixed_solve, fixed=True)
@@ -2829,38 +2978,47 @@ def graph_phase(dev) -> dict:
     cut = lambda d, m: (d[0][:m], [kf for kf in d[1] if kf[0] < m])
     same = all(decisions(g) == cut(decisions(e1), len(g["frames"]))
                for g in (ga, gs, gt, gx, e2))
-    # non-keyframe frames after the capture
-    after = [k for k in nonkf if not any(r["captured"] for r in (ga["rows"][k],
-                                                                gs["rows"][k]))
+    # every frame after the capture, keyframes and the accepted loop included
+    after = [k for k in range(n) if not any(r["captured"] for r in (ga["rows"][k],
+                                                                    gs["rows"][k]))
              and ga["rows"][k]["replays"]]
     flags_site = f"frame_graph.py:{frame_graph_read_line()}"
     syncs = [(k, dict(gs["rows"][k]["sites"])) for k in after]
     counted = [(k, ga["rows"][k]["replays"]) for k in after]
     other = [(k, sum(v for name, v in gt["rows"][k]["launch_calls"].items()
-                     if "Graph" not in name)) for k in probe]
+                     if "Graph" not in name)) for k in traced]
     replays = [(k, gt["rows"][k]["replays"],
                 sum(v for name, v in gt["rows"][k]["launch_calls"].items() if "Graph" in name))
-               for k in probe]
+               for k in traced]
     its_differ = [(k, e_its[k], r["its"]) for k, r in enumerate(gs["rows"])
                   if r["its"] != e_its[k]]
     med = lambda xs: statistics.median(xs) if xs else float("nan")
     # the first three traced frames, in both graphs
     dev_us = {name: med([r["rows"][k]["device_us"] for k in probe[:3]]) for name, r in
               (("cond", gt), ("fixed", gx))}
+    kf_plain = [k for k in kf_frames if k in after and k not in loop_frames]
+    kf_nodes = [(k, ga["rows"][k]["launches"]["cond"]) for k in kf_frames if k in after]
+    ms_of = lambda rows, ks: [round(rows[k], 3) for k in ks]
+    g_ms = [r["ms"] for r in ga["rows"]]
+    e_ms = [1e3 * t for t in e1["t_step"]]
     print(f"graph (full width slice, {n} frames): decisions of three graph runs, the "
           f"fixed-form graph run and two eager runs equal {same}; keyframes "
-          f"{len(e1['kfs'])}, skips {[k for k, f in enumerate(e1['frames']) if f[0]]}, "
-          f"accepted loops {[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
+          f"{len(e1['kfs'])} at frames {kf_frames}, skips "
+          f"{[k for k, f in enumerate(e1['frames']) if f[0]]}, accepted loops "
+          f"{[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
     print(f"  positions: eager against eager {spread:.3g} m (the spread), graphs against "
           f"eager {diff:.3g} m; final log {dlog:.3g} m")
     print(f"  solver iterations by frame (odometry, mapping), eager: "
           f"{[(i.get('odometry'), i.get('mapping')) for i in e_its]}; frames whose graphed "
           f"iterations differ {its_differ}")
-    print(f"  ms per non-keyframe frame (median, each frame synchronized): eager "
-          f"{med([1e3 * e1['t_step'][k] for k in nonkf]):.3f}, graphs "
-          f"{med([ga['rows'][k]['ms'] for k in after]):.3f} (after capture); keyframes "
-          f"eager {med([1e3 * e1['t_step'][k] for k in range(n) if k not in nonkf]):.3f}, "
-          f"graphs {med([ga['rows'][k]['ms'] for k in range(n) if k not in nonkf]):.3f}; "
+    print(f"  ms per frame (median, each frame synchronized): non-keyframes eager "
+          f"{med([e_ms[k] for k in nonkf]):.3f}, graphs "
+          f"{med([g_ms[k] for k in nonkf if k in after]):.3f} (after capture); keyframes "
+          f"without an accepted loop eager {med([e_ms[k] for k in kf_plain]):.3f}, graphs "
+          f"{med([g_ms[k] for k in kf_plain]):.3f} (frames {kf_plain}: graphs "
+          f"{ms_of(g_ms, kf_plain)}); the accepted loop (frames {loop_frames}) eager "
+          f"{ms_of(e_ms, loop_frames)}, graphs {ms_of(g_ms, loop_frames)}; the first "
+          f"frame (eager, its warm-up and the capture) {g_ms[0]:.1f}; "
           f"{devices.describe('cuda')}")
     print(f"  device us per non-keyframe frame (median of frames {probe[:3]}; "
           f"torch.profiler): eager {med([e2['device_us'][k] for k in probe[:3]]):.1f} in "
@@ -2871,32 +3029,68 @@ def graph_phase(dev) -> dict:
           f"{med([gx['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}; host ms on "
           f"those traced frames {med([gt['rows'][k]['ms'] for k in probe[:3]]):.3f} and "
           f"{med([gx['rows'][k]['ms'] for k in probe[:3]]):.3f}; graph device us over all "
-          f"{len(probe)} traced frames {med([gt['rows'][k]['device_us'] for k in probe]):.1f}")
-    print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; replays "
-          f"{dict(fg.replays)}; If nodes a replay outside the regions "
-          f"{fg.segments.kernels.get('frame', [None])[-1]}, in the fallback region "
-          f"{fg.segments.region_kernels.get('frame', {}).get('fallback', [None])[-1]}; "
-          f"peak device memory "
-          f"eager {eager_peak:.0f} MiB, graph {graph_peak:.0f} MiB")
-    print(f"  non-keyframe frames after capture {after}: host syncs by call site "
-          f"{syncs}")
-    print(f"  graph replays a frame (FrameGraph's count) {counted}; on the traced "
-          f"frames (count, cudaGraphLaunch calls) {replays}, other launch calls "
-          f"{other}; by name, frame {probe[-1]}: {dict(gt['rows'][probe[-1]]['launch_calls'])}")
+          f"{len(probe)} traced frames {med([gt['rows'][k]['device_us'] for k in probe]):.1f}; "
+          f"the keyframe {kf_probe} {[gt['rows'][k]['device_us'] for k in kf_probe]} us in "
+          f"{[gt['rows'][k]['device_kernels'] for k in kf_probe]} device operations")
+    print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; warm-up s "
+          f"before it by region {warmup_text(fg)}; "
+          f"replays {dict(fg.replays)}; If nodes a replay outside the regions "
+          f"{fg.segments.kernels['frame'][-1]}, inside them "
+          f"{({r: v[-1] for r, v in fg.segments.region_kernels['frame'].items()})}; If "
+          f"nodes counted on each keyframe replay {kf_nodes}; peak device memory eager "
+          f"{eager_peak:.0f} MiB, graph {graph_peak:.0f} MiB (reserved {graph_reserved:.0f} "
+          f"MiB)")
+    print(f"  frames after capture {after[0]}-{after[-1]} ({len(after)}): host syncs by "
+          f"call site {collections.Counter(tuple(sorted(s.items())) for _, s in syncs)}")
+    print(f"  graph replays a frame (FrameGraph's count) "
+          f"{collections.Counter(r for _, r in counted)}; on the traced frames (count, "
+          f"cudaGraphLaunch calls) {replays}, other launch calls {other}; by name, frame "
+          f"{probe[-1]}: {dict(gt['rows'][probe[-1]]['launch_calls'])}")
     check(same, "graph: the graph runs took other decisions than the eager runs")
     check(diff <= spread, f"graph: positions {diff:.3g} m from the eager runs, whose "
           f"spread is {spread:.3g} m")
     check(not its_differ, f"graph: solver iterations differ from eager: {its_differ}")
-    check(len(after) >= 10, f"graph: only {len(after)} non-keyframe frames after capture")
+    check(after == list(range(1, n)), f"graph: frames replayed after the capture {after}")
+    check(loop_frames and all(k in after for k in loop_frames) and kf_plain,
+          f"graph: keyframes {kf_frames}, loops {loop_frames} not replayed")
     check(all(s == {flags_site: 1} for _, s in syncs),
-          f"graph: a non-keyframe frame made other host syncs than one flags read: {syncs}")
-    check(len(probe) == GRAPH_TRACED, f"graph: non-keyframe frames to trace {probe}")
+          f"graph: a frame made other host syncs than one flags read: {syncs}")
+    check(len(probe) == GRAPH_TRACED and kf_probe, f"graph: frames to trace {traced}")
     check(all(r == 1 for _, r in counted) and all(r == c == 1 for _, r, c in replays),
           f"graph: replays a frame {counted}, {replays}")
     check(all(o <= GRAPH_MAX_OTHER for _, o in other), f"graph: other launches {other}")
-    check(all(launches[key] > 0 for key in ("eigh", "eigvalsh", "cond")),
+    check(all(launches[key] > 0 for key in WRAPPERS),
           f"graph: a kernel of the path was not launched: {launches}")
-    traced_launches(gt, probe, "graph")
+    check(all(n_nodes > fg.segments.kernels["frame"][-1] for _, n_nodes in kf_nodes),
+          f"graph: a keyframe replay counted no If node of its region: {kf_nodes}")
+    traced_launches(gt, traced, "graph")
+
+    # the capacity compaction replayed: the store cut to 8 keyframes, so the
+    # slice's ninth keyframe compacts it inside the graph
+    kcfg = cfg.replace(loop=dataclasses.replace(cfg.loop, max_keyframes=COMPACT_KEYFRAMES))
+    ke = run_fused(kcfg, xyz, inten, dev)
+    kg = run_graphs(kcfg, xyz, inten, dev)
+    kfg = kg["system"].graph
+    kdiff = float((kg["pose_t"] - ke["pose_t"]).abs().max())
+    klog = float((kfg.state.log.t - ke["state"].log.t).abs().max())
+    k_ran = [k for k, r in enumerate(kg["rows"]) if r["regions"].get("compact")]
+    k_replayed = [k for k in kg["compacted"] if kg["rows"][k]["replays"] == 1
+                  and not kg["rows"][k]["captured"]]
+    print(f"  compaction (the slice with max_keyframes {COMPACT_KEYFRAMES}): decisions equal "
+          f"to eager {decisions(kg) == decisions(ke)}, accepted loops "
+          f"{[(a['frame'], a['loop_idx']) for a in kg['kfs'] if a['accepted']]}; compacted "
+          f"at frames {kg['compacted']} (eager {ke['compacted']}), the compact region run "
+          f"by the flags read at {k_ran}, replayed at {k_replayed}; positions {kdiff:.3g} m "
+          f"from eager, final log {klog:.3g} m; warm-up s "
+          f"{warmup_text(kfg)}; capture s {({k: round(v, 4) for k, v in kfg.capture_s.items()})}")
+    check(decisions(kg) == decisions(ke) and kg["compacted"] == ke["compacted"],
+          "graph: the compacting run took other decisions than its eager run")
+    check(kg["compacted"] and k_ran == kg["compacted"] == k_replayed,
+          f"graph: compactions {kg['compacted']}, region run {k_ran}, replayed {k_replayed}")
+    check(kdiff <= spread and klog <= spread,
+          f"graph: the compacting run's positions {kdiff:.3g} m, log {klog:.3g} m from "
+          f"its eager run (spread {spread:.3g} m)")
+    lap("compaction")
 
     # the fallback region: 8 constant-intensity frames skip on every frame
     fcfg = config.SlamConfig()
@@ -2933,6 +3127,9 @@ def graph_phase(dev) -> dict:
 TRACE_KERNELS = {
     "eigh": lambda n: "jacobi_kernel" in n and ("true" in n or "(bool)1" in n),
     "eigvalsh": lambda n: "jacobi_kernel" in n and not ("true" in n or "(bool)1" in n),
+    "svd3": lambda n: "svd3_kernel" in n,
+    "nn": lambda n: "nn_packed_kernel" in n,
+    "pack": lambda n: "pack_kernel" in n and "nn_packed" not in n,
     "cond": lambda n: "set_handle_kernel" in n,
 }
 
@@ -2971,16 +3168,22 @@ NN_SOURCE = ("intensity_slam_tpu_torch/csrc/nn.cu", "intensity_slam_tpu/ops/pall
 EIG_SOURCE = ("intensity_slam_tpu_torch/csrc/eigsym.cu",
               "no Pallas source: XLA's jnp.linalg.eigh at intensity_slam_tpu/ops/ground.py:56 "
               "and pipeline/mapping.py:167, jnp.linalg.eigvalsh at ops/solver.py:185")
+SVD_SOURCE = ("intensity_slam_tpu_torch/csrc/svd3.cu",
+              "no Pallas source: XLA's jnp.linalg.svd and the reflection rule at "
+              "intensity_slam_tpu/ops/icp.py:58-61 (_umeyama_step)")
 COND_SOURCE = ("intensity_slam_tpu_torch/csrc/graph_cond.cu",
                "no Pallas source: the predicates of lax.while_loop at "
-               "intensity_slam_tpu/ops/solver.py:177 and of lax.cond at pipeline/slam.py:126, "
-               "pipeline/mapping.py:355, :360, pipeline/fused.py:208")
+               "intensity_slam_tpu/ops/solver.py:177, of lax.cond at pipeline/slam.py:126, "
+               "pipeline/mapping.py:355, :360, pipeline/fused.py:193, :208, "
+               "pipeline/loop.py:330, :608, :640, and of the lax.fori_loop at "
+               "pipeline/posegraph.py:725")
 # (record key, kernel name, source, what it replaces)
 KERNELS = (
     ("nn", "nn_packed_kernel", *NN_SOURCE),
     ("pack", "pack_kernel", *NN_SOURCE),
     ("eigh", "jacobi_kernel<3, vectors> (eigsym.eigh)", *EIG_SOURCE),
     ("eigvalsh", "jacobi_kernel<6, values> (eigsym.eigvalsh)", *EIG_SOURCE),
+    ("svd3", "svd3_kernel (svd3.svd3)", *SVD_SOURCE),
     ("cond", "set_handle_kernel (graph_cond.when)", *COND_SOURCE),
 )
 
@@ -3014,16 +3217,17 @@ def main() -> int:
     args = sys.argv[1:]
     only = args[args.index("--phase") + 1] if "--phase" in args else None
     dev = torch.device("cuda", 0)
+    devices.detach_profiler_after_traces()       # the traces must not slow the replays
     print(devices.describe("cuda"))
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(mod.build, verbose=True)
                   for name, mod in (("nn", pallas_nn), ("eigsym", eigsym),
-                                    ("graph_cond", graph_cond))}
+                                    ("svd3", svd3), ("graph_cond", graph_cond))}
         reports = {name: b.result() for name, b in builds.items()}
-    print(f"kernels build (nn.cu, eigsym.cu and graph_cond.cu in parallel): "
+    print(f"kernels build (nn.cu, eigsym.cu, svd3.cu and graph_cond.cu in parallel): "
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -3043,6 +3247,7 @@ def main() -> int:
                   "slice": lambda: slice_phase(dev),
                   "graph": lambda: graph_phase(dev),
                   "eig": lambda: eig_kernel_phase(dev),
+                  "svd": lambda: svd_kernel_phase(dev, cfg),
                   "cond": lambda: cond_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),
                   "checkpoint": lambda: checkpoint_phase(dev),

@@ -1,11 +1,12 @@
 // Conditional (If) nodes in a CUDA stream capture: the on-device branch that
 // `utils/graph_cond.py` opens around a block of a captured graph.
 //
-// Counterpart of the predicates of the JAX package's `lax.cond` and
-// `lax.while_loop` under `jax.jit` (`intensity_slam_tpu/ops/solver.py:177`,
-// `pipeline/slam.py:126`, `pipeline/mapping.py:355`, `:360`,
-// `pipeline/fused.py:208`), which XLA evaluates on the device; there is no
-// Pallas source.  The design is that of torch's own
+// Counterpart of the predicates of the JAX package's `lax.cond`,
+// `lax.while_loop` and `lax.fori_loop` under `jax.jit`
+// (`intensity_slam_tpu/ops/solver.py:177`, `pipeline/slam.py:126`,
+// `pipeline/mapping.py:355`, `:360`, `pipeline/fused.py:193`, `:208`,
+// `pipeline/loop.py:330`, `:608`, `:640`, `pipeline/posegraph.py:725`),
+// which XLA evaluates on the device; there is no Pallas source.  The design is that of torch's own
 // `CUDAGraph::begin_capture_to_if_node`: `isl_cond_open` creates the node's
 // handle in the graph the stream is capturing, launches `set_handle_kernel`
 // (one thread: reads the 0-d bool predicate, sets the handle), adds the node

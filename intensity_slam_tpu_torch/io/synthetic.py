@@ -281,6 +281,25 @@ def corridor_trajectory(num_frames: int, speed: float = 0.3,
     return se3.Pose(q.to(device), t.to(device))
 
 
+def out_and_back_trajectory(n_out: int = 14, n_turn: int = 8, speed: float = 0.4,
+                            device="cuda") -> se3.Pose:
+    """The loop-closure test's out-and-back (`tests/test_loop_closure.py` of
+    the JAX package): forward along +x, a U-turn in `n_turn` steps, back past
+    the start; the sensor 0.8 m above ground."""
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    pose = se3.Pose(ident, torch.tensor([0.0, 0.0, 0.8]))
+    fwd = se3.Pose(ident, torch.tensor([speed, 0.0, 0.0]))
+    turn = se3.Pose(se3.so3_exp(torch.tensor([0.0, 0.0, math.pi / n_turn])),
+                    torch.tensor([speed * 0.5, 0.0, 0.0]))
+    qs, ts = [], []
+    for step, n in ((fwd, n_out), (turn, n_turn), (fwd, n_out + 2)):
+        for _ in range(n):
+            qs.append(pose.q)
+            ts.append(pose.t)
+            pose = se3.compose(pose, step)
+    return se3.Pose(torch.stack(qs).to(device), torch.stack(ts).to(device))
+
+
 def circuit_world(textureless: bool = True, dynamic: bool = False,
                   device="cuda") -> World:
     """The hard-benchmark world: a rectangular corridor CIRCUIT around a

@@ -13,12 +13,13 @@ import torch
 
 from ..config import LoopConfig
 from ..utils import index
-from .features import popcount32
+from .features import hamming_matrix
 
 SIG_FEATURES = 256    # strongest descriptors kept per keyframe
 MUT_HAMMING = 24      # max bits (of 256) for a mutual match to count
 _CHUNK = 128          # history keyframes per Hamming pass (bounds the
-# (C, S, S) transient as the JAX package's chunked map does)
+# (C, S, S) transient as the JAX package's chunked map does; a chunk's +-1
+# history is C x S x 256 float32, 33.5 MB)
 
 
 def signature(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -39,14 +40,11 @@ def signature(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def _chunk_scores(cd, cv, hd, hv):
     """cur (S,8)+(S,) vs hist chunk (C,S,8)+(C,S) -> (C,) mutual-match
-    fraction.  The Hamming tensor is summed word by word, so the transient
-    is (C, S, S) int32."""
+    fraction.  The (C, S, S) Hamming tensor is one batched float32 product
+    of the descriptors' bits as +-1 (`features.hamming_matrix`): the
+    reference's popcount sums exactly, whatever the summation order."""
     S = cd.shape[0]
-    h = None
-    for w in range(8):
-        x = torch.bitwise_xor(cd[None, :, None, w], hd[:, None, :, w])
-        pc = popcount32(x)
-        h = pc if h is None else h + pc
+    h = hamming_matrix(cd[None], hd)
     h = torch.where(hv[:, None, :], h, 4096)
     h = torch.where(cv[None, :, None], h, 4096)
     best = torch.amin(h, dim=2)                     # (C, S)

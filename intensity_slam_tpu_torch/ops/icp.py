@@ -3,9 +3,10 @@
 PyTorch counterpart of `intensity_slam_tpu/ops/icp.py`, the PCL ICP use in
 `loopClosureThread` (`src/intensity_feature_tracker.cpp:216-316`): each
 iteration is one masked nearest-neighbour pass (`ops.pallas_nn`, the CUDA
-kernel on the card) and one closed-form weighted Umeyama update; 32
-iterations plus a final pass = 33 nearest-neighbour launches per alignment,
-all on one pack of the target cloud's valid points.
+kernel on the card) and one closed-form weighted Umeyama update (its 3x3
+SVD the `csrc/svd3.cu` kernel on the card, `ops.svd3`); 32 iterations plus a
+final pass = 33 nearest-neighbour and 32 SVD launches per alignment, all on
+one pack of the target cloud's valid points, and no host read.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..utils import index, se3
 from ..utils.se3 import Pose
-from . import pallas_nn
+from . import pallas_nn, svd3
 
 
 class ICPResult(NamedTuple):
@@ -53,11 +54,8 @@ def _umeyama_step(src: torch.Tensor, tgt: torch.Tensor, w: torch.Tensor) -> Pose
     mu_s = torch.sum(src * w[:, None], dim=0) / wsum
     mu_t = torch.sum(tgt * w[:, None], dim=0) / wsum
     cov = torch.einsum("ni,nj,n->ij", tgt - mu_t, src - mu_s, w) / wsum
-    U, _, Vt = torch.linalg.svd(cov)
-    det = torch.linalg.det(U @ Vt)
-    D = torch.diag(torch.cat([torch.ones(2, device=cov.device),
-                              torch.sign(det)[None]]))
-    R = U @ D @ Vt
+    U, _, Vt = svd3.svd3(cov)      # the reflection fixed: U @ Vt is the rotation
+    R = U @ Vt
     t = mu_t - R @ mu_s
     return Pose(se3.mat_to_quat(R), t)
 

@@ -4,8 +4,8 @@ place: the counterparts of the JAX package's compiled per-frame programs.
 PyTorch runs eagerly, and a step is thousands of small kernels whose
 launches, not their work, set its time; a CUDA graph launches a captured
 sequence of them in one call.  Three owners share the capture and replay
-bookkeeping (`Segments`) and the state helpers (`donate`, `clone_state`,
-`pack_info`, `warm_up`):
+bookkeeping (`Segments`) and the state helpers (`pack_info`, `warm_up`;
+`donate` and `clone_state`, from `utils.tree`):
 
 - `FrameGraph` (here): one session's `fused_step`, the counterpart of
   `jax.jit(fused_step, donate_argnums=(0,))` (`pipeline/system.py`,
@@ -19,7 +19,8 @@ bookkeeping (`Segments`) and the state helpers (`donate`, `clone_state`,
 The JAX program's decisions stay on the device, as conditional (If) nodes
 (`utils.graph_cond.when`): every solve's early exit (a node an iteration,
 `solver.solve_pose`), the capacity policy (`mapping.evict_policy`) and,
-here, the fallback and the log append.  `FrameGraph`'s frame is ONE graph:
+here, the fallback and the whole keyframe branch with the conds inside it.
+`FrameGraph`'s frame, keyframe or not, is ONE graph:
 
     front     `slam.front`: undistortion, projection, intensity odometry,
               curvature features, the stacked flags
@@ -27,35 +28,50 @@ here, the fallback and the log append.  `FrameGraph`'s frame is ONE graph:
       fallback  `slam.fallback`: the geometric solve
     back      `slam.back`: mux, geometric update, ground, scan-to-map,
               velocity EMA
-    if not is_keyframe:
-      log       `fused.append_log` with no keyframe output: a non-keyframe's
-                ring-log append and its packed `FrameInfo`
+    if is_keyframe:
+      keyframe  `fused.keyframe_branch` (`loop.keyframe_core`), written into
+                the state buffers and the `BackendOutput` buffers:
+        if the store is full:     compact  `loop._compact_small`
+        if a candidate is found:  verify   submap, ICP, gates, and the PCM
+                                           vote's growth steps (a node each,
+                                           on "the last step added a loop")
+          if the loop is accepted:  accept  the loop edge and the dense PGO
+        if the loop is accepted:  rebuild  the maps at the optimized poses
+    log       `fused.append_log`: the ring-log append and the packed
+              `FrameInfo`, every frame
 
-then the flags come to the host, the frame's one read.  A keyframe runs
-`fused.keyframe_branch` and that frame's log append eagerly after the
-replay, as `fused.fused_step` does: its branches read the device (ROADMAP
-C.2).  `BatchedStepGraph`'s step is one graph of `front`, the fallback
-region when any session's flags say `skip & has_prev` (solved on all B and
-kept where they say so, `slam._fallback_batched`) and `back`, then the
-(3, B) flags read.
+then the flags (skip, has_prev, is_keyframe, a candidate found, the loop
+accepted, the store compacted) come to the host, the frame's one read: it
+decides nothing but the kernel counts and `FrameInfo`'s unpacking, as the
+counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.
+`BatchedStepGraph`'s step is one graph of `front`, the fallback region when
+any session's flags say `skip & has_prev` (solved on all B and kept where
+they say so, `slam._fallback_batched`) and `back`, then the (3, B) flags
+read.
 
 - **Static buffers.** The frame's inputs (`xyz`, `inten`, the timestamp as
   a 0-d tensor, the RANSAC draws `ground_u`) and the whole state live in
   buffers that the graph reads at fixed addresses; what a region hands on
-  (the fallback's delta, the log's packed `FrameInfo`) is a buffer made
-  before it.
+  (the fallback's delta, the keyframe branch's `BackendOutput`, pre-filled
+  with the no-keyframe values; inside the branch, `graph_cond.cond`'s
+  copies) is a buffer made before it.
 - **Donation.** Each segment ends by copying the state it made into the
   state buffers (`donate`), so the state is updated in place, as JAX's
-  donated buffers are; `adopt(state)` copies a state made outside the
-  graphs (the keyframe branch's, a loaded checkpoint's, a refine's) into
-  them.  A caller that keeps `state` across a frame sees it change:
-  `snapshot()` clones it.
+  donated buffers are (the keyframe's payload row is written in place,
+  `loop.write_slot_`); `adopt(state)` copies a state made outside the
+  graphs (a loaded checkpoint's, a refine's) into them.  A caller that
+  keeps `state` across a frame sees it change: `snapshot()` clones it.
 - **Capture.** The graph is captured lazily, after a frame has run every
   part of it eagerly (the warm-up, whose result is the frame's real one):
-  `FrameGraph` at the end of the first non-keyframe frame, the others after
-  their first step; a fallback that no frame has taken yet is run once
-  eagerly and dropped first (`warm_up`).  `capture_s` records the capture's
-  seconds, `replays` the replays.
+  each owner after its first step.  A region that no step has taken yet
+  runs once eagerly first and its result is dropped (`warm_up`): the
+  fallback, and in `FrameGraph` the keyframe branch with its compact,
+  verify, accept and rebuild regions forced (`graph_cond.forcing`), which
+  is where a process pays its first ICP, PCM and PGO set-up (cuSOLVER and
+  cuBLAS handles, lazy module loading, `torch.func`): `warmup_s` records
+  those seconds by region, `capture_s` the capture's, `replays` the
+  replays.  The warm-up runs once a process, device, configuration and
+  thread (`warmups`): a later owner with the same ones only captures.
 - **Draws.** The RANSAC uniforms are drawn from the state's generator (each
   session's, in a batch) outside the graphs, into the `ground_u` buffer:
   the eager step's draws.
@@ -76,6 +92,7 @@ kept where they say so, `slam._fallback_batched`) and `back`, then the
 from __future__ import annotations
 
 import collections
+import threading
 import time
 
 import torch
@@ -84,74 +101,9 @@ from ..config import SlamConfig
 from ..ops import projection
 from ..utils import graph_cond
 from ..utils.graph_cond import KERNEL_WRAPPERS
+from ..utils.tree import clone_state, donate, generators, leaves, map_leaves
 from ..utils.se3 import Pose
-from . import fused, slam
-
-
-def leaves(tree):
-    """The tensors of a NamedTuple tree, in field order (generators and
-    other non-tensor leaves skipped)."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, tuple):
-        for f in tree:
-            yield from leaves(f)
-
-
-def _rebuild(tree, fn):
-    """The tree with every leaf `x` that is not a tuple (a tensor, a
-    generator, None) replaced by `fn(x)`."""
-    if isinstance(tree, tuple):
-        kids = (_rebuild(f, fn) for f in tree)
-        # a NamedTuple of the state, or a plain tuple (a batch's generators)
-        return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
-    return fn(tree)
-
-
-def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-            and a.stride() == b.stride())
-
-
-def donate(dst, src) -> None:
-    """Copy the tensors of the tree `src` into the buffers of the tree `dst`
-    (the same structure, shapes and dtypes).  A leaf that already is its
-    buffer is skipped; one that shares memory with any buffer of `dst` is
-    cloned before the first write, so that no copy reads what another has
-    overwritten."""
-    dst_l, src_l = list(leaves(dst)), list(leaves(src))
-    if len(dst_l) != len(src_l):
-        raise ValueError(f"state trees differ: {len(dst_l)} against {len(src_l)} tensors")
-    bufs = {d.untyped_storage().data_ptr() for d in dst_l}
-    pairs = []
-    for d, s in zip(dst_l, src_l):
-        if s.dtype != d.dtype or s.shape != d.shape:
-            raise ValueError(f"state leaf changed: {s.dtype} {tuple(s.shape)} into "
-                             f"{d.dtype} {tuple(d.shape)}")
-        if _same_view(d, s):
-            continue
-        if s.device == d.device and s.untyped_storage().data_ptr() in bufs:
-            s = s.clone()
-        pairs.append((d, s))
-    for d, s in pairs:
-        d.copy_(s)
-
-
-def _copy(leaf):
-    if isinstance(leaf, torch.Tensor):
-        return leaf.clone()
-    if isinstance(leaf, torch.Generator):
-        twin = torch.Generator(device=leaf.device)
-        twin.set_state(leaf.get_state())
-        return twin
-    return leaf
-
-
-def clone_state(state):
-    """A copy of the state tree `state` that shares no memory with it: every
-    tensor cloned, every generator (a session's, or each of a batch's)
-    copied with its state."""
-    return _rebuild(state, _copy)
+from . import fused, loop, slam
 
 
 def pack_info(info) -> tuple[torch.Tensor, tuple]:
@@ -161,7 +113,7 @@ def pack_info(info) -> tuple[torch.Tensor, tuple]:
     and (byte offset, dtype, shape) of each tensor."""
     ts = list(leaves(info))
     slots = iter(range(len(ts)))
-    skeleton = _rebuild(info, lambda x: next(slots) if isinstance(x, torch.Tensor) else x)
+    skeleton = map_leaves(info, lambda x: next(slots) if isinstance(x, torch.Tensor) else x)
     order = sorted(range(len(ts)), key=lambda i: -ts[i].element_size())
     parts, where, off = [], {}, 0
     for i in order:
@@ -180,15 +132,7 @@ def unpack_info(raw: torch.Tensor, layout: tuple):
     for off, dtype, shape in fields:
         n = torch.Size(shape).numel() * dtype.itemsize
         views.append(raw[off:off + n].view(dtype).reshape(shape))
-    return _rebuild(skeleton, lambda x: views[x] if isinstance(x, int) else x)
-
-
-def _generators(tree):
-    if isinstance(tree, torch.Generator):
-        yield tree
-    elif isinstance(tree, tuple):
-        for f in tree:
-            yield from _generators(f)
+    return map_leaves(skeleton, lambda x: views[x] if isinstance(x, int) else x)
 
 
 def warm_up(fn, state) -> None:
@@ -197,7 +141,7 @@ def warm_up(fn, state) -> None:
     made, its solver's first use done), as every other part of a graph runs
     eagerly before its capture.  Raises if `fn` drew from a generator of
     `state` or wrote one of its tensors."""
-    gens = list(_generators(state))
+    gens = list(generators(state))
     rng = [g.get_state() for g in gens]
     versions = [t._version for t in leaves(state)]
     fn()
@@ -284,10 +228,24 @@ def _count(launches: list[int]) -> None:
         w.launches += n
 
 
+# the frame graph's warm-ups run in this process, by (device, configuration,
+# thread): each one's seconds by region.  What a warm-up sets up is the
+# process's (library handles, which are the thread's, lazy module loading,
+# `torch.func`, the cached constants of these shapes), so a later owner with
+# the same key captures its graph without running the regions again.
+warmups: dict[tuple, dict[str, float]] = {}
+
+
 class FrameGraph:
     """One session's frames through the captured graph (see the module
     docstring).  `state` is the `FusedState` of buffers, read at any time;
     `step` runs a frame and returns its `FrameInfo`."""
+
+    # the frame graph's conditional regions that hold hand kernels, counted
+    # where the flags read after a replay says they ran
+    REGIONS = ("fallback", "keyframe", "compact", "verify", "accept", "rebuild")
+    # the keyframe branch's regions, run once eagerly before the capture
+    KEYFRAME_REGIONS = ("compact", "verify", "accept", "rebuild")
 
     def __init__(self, cfg: SlamConfig, device="cuda", seed: int = 0,
                  state: fused.FusedState | None = None):
@@ -306,14 +264,20 @@ class FrameGraph:
         self._ground_u = torch.zeros((cfg.ground.ransac_iters, 3), **f32)
         self._fb = Pose.identity(device=self.device)      # the fallback's delta
         self._ident = Pose.identity(device=self.device)
+        self._no_kf = fused.no_keyframe_output(self.device)
+        self._bout = clone_state(self._no_kf)      # the keyframe region's output
         self.segments = Segments(self.device)
         self._layout: tuple | None = None      # pack_info's
-        self._raw: torch.Tensor | None = None  # the log region's packed FrameInfo
+        self._raw: torch.Tensor | None = None  # the frame's packed FrameInfo
         self._fallback_ran = False
         self.capture_s = self.segments.capture_s        # by graph
+        # by region, before the capture (empty where an earlier owner's
+        # warm-up served: `warmups`)
+        self.warmup_s: dict[str, float] = {}
         self.replays = self.segments.replays
         self.last_output: slam.SlamOutput | None = None   # the last frame's
         # `slam.back` output (a graph's tensors: valid until the next frame)
+        self.last_flags: dict[str, bool] = {}   # the last frame's flags read
 
     # ---- state -----------------------------------------------------------
     def adopt(self, state: fused.FusedState) -> None:
@@ -345,11 +309,25 @@ class FrameGraph:
         donate(s, new)
         return out
 
-    def _log(self, out: slam.SlamOutput) -> None:
+    def _keyframe_branch(self, fr: slam.FrontOutput, out: slam.SlamOutput,
+                         era_qual: torch.Tensor):
         st = self.state
-        iq, _ = fused.frame_quality(st.log, out, self.cfg)
-        log, info = fused.append_log(st.log, out, fused.no_keyframe_output(self.device),
-                                     st.backend.num_kf, iq, self.cfg)
+        return fused.keyframe_branch(st.backend, st.slam, out, fr.xyz, self._inten,
+                                     self._ts, era_qual, self.cfg)
+
+    def _keyframe(self, fr: slam.FrontOutput, out: slam.SlamOutput,
+                  era_qual: torch.Tensor) -> None:
+        """The keyframe branch, written into the state buffers (its payload
+        row in place) and the `BackendOutput` buffers."""
+        sstate, small, slot, bout = self._keyframe_branch(fr, out, era_qual)
+        st = self.state
+        donate(st.slam, sstate)
+        loop.write_slot_(st.backend, small, slot)
+        donate(self._bout, bout)
+
+    def _log(self, out: slam.SlamOutput, iq: torch.Tensor) -> None:
+        st = self.state
+        log, info = fused.append_log(st.log, out, self._bout, st.backend.num_kf, iq, self.cfg)
         donate(st.log, log)
         raw, self._layout = pack_info(info)
         if self._raw is None:
@@ -357,25 +335,49 @@ class FrameGraph:
         else:
             self._raw.copy_(raw)
 
-    def _frame(self) -> tuple[slam.FrontOutput, slam.SlamOutput]:
-        """The frame up to the keyframe branch: `front`, the fallback
-        region, `back`, the log region."""
+    def _frame(self) -> tuple[slam.FrontOutput, slam.SlamOutput, torch.Tensor]:
+        """The whole frame: `front`, the fallback region, `back`, the
+        keyframe region, the log append; and the flags the host reads."""
         fr = self._front()
         skip, has_prev, is_kf = fr.flags.unbind()
         with graph_cond.when(skip & has_prev, "fallback") as taken:
             if taken:
                 self._fallback(fr)
         out = self._back(fr)
-        with graph_cond.when(~is_kf, "log") as taken:
+        iq, era_qual = fused.frame_quality(self.state.log, out, self.cfg)
+        donate(self._bout, self._no_kf)
+        with graph_cond.when(is_kf, "keyframe") as taken:
             if taken:
-                self._log(out)
-        return fr, out
+                self._keyframe(fr, out, era_qual)
+        self._log(out, iq)
+        b = self._bout
+        flags = torch.stack([skip, has_prev, is_kf, b.sc_found, b.loop_found, b.compacted])
+        return fr, out, flags
+
+    def _warm_up(self, fr: slam.FrontOutput, out: slam.SlamOutput) -> None:
+        """Run once eagerly what the capture records and no frame has run:
+        the fallback, if no frame took it, and the keyframe branch with its
+        regions forced (`graph_cond.forcing`, each timed into `warmup_s`),
+        both on the live state, which they leave untouched."""
+        cfg = self.cfg
+        if not self._fallback_ran:
+            t0 = time.perf_counter()
+            warm_up(lambda: slam.fallback(self.state.slam, fr, cfg), self.state)
+            self.warmup_s["fallback"] = time.perf_counter() - t0
+        _, era_qual = fused.frame_quality(self.state.log, out, cfg)
+        with graph_cond.forcing(self.KEYFRAME_REGIONS, self.warmup_s):
+            t0 = time.perf_counter()
+            warm_up(lambda: self._keyframe_branch(fr, out, era_qual), self.state)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.warmup_s["keyframe"] = (time.perf_counter() - t0 - sum(
+            self.warmup_s.get(r, 0.0) for r in self.KEYFRAME_REGIONS))
 
     # ---- one frame ----------------------------------------------------------
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamp,
              ground_u: torch.Tensor | None = None) -> fused.FrameInfo:
         """Run one frame; returns its `FrameInfo` (device scalars, none read)."""
-        cfg, st = self.cfg, self.state
+        st = self.state
         self._xyz.copy_(xyz)
         self._inten.copy_(inten)
         if isinstance(timestamp, torch.Tensor):
@@ -388,30 +390,27 @@ class FrameGraph:
             self._ground_u.copy_(ground_u)
 
         replayed = "frame" in self.segments.graphs
-        fr, out = self.segments.replay("frame") if replayed else self._frame()
-        skip, has_prev, is_kf = fr.flags.tolist()       # the frame's one host read
+        fr, out, flags = self.segments.replay("frame") if replayed else self._frame()
+        # the frame's one host read
+        skip, has_prev, is_kf, found, accept, compacted = flags.tolist()
+        ran = {"fallback": skip and has_prev, "keyframe": is_kf,
+               "compact": compacted, "verify": found, "accept": accept,
+               "rebuild": accept and self.cfg.mapping.rebuild_on_loop}
         if replayed:
-            self.segments.count_regions("frame", {"fallback": skip and has_prev,
-                                                  "log": not is_kf})
+            self.segments.count_regions("frame", ran)
+        self.last_flags = ran
         out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
         self.last_output = out
-        if not is_kf:
-            info = unpack_info(self._raw.clone(), self._layout)
-            if not replayed and self.segments.on_card:
-                # every region has run eagerly now, the fallback perhaps not
-                if not self._fallback_ran:
-                    warm_up(lambda: slam.fallback(self.state.slam, fr, cfg), self.state)
-                self.segments.capture("frame", self._frame, ("fallback", "log"))
-            return info
-        # the keyframe branch and its log append, eagerly (fused_step's)
-        iq, era_qual = fused.frame_quality(st.log, out, cfg)
-        sstate, bstate, bout = fused.keyframe_branch(
-            st.backend, st.slam, out, fr.xyz, self._inten, self._ts, era_qual, cfg)
-        self.adopt(fused.FusedState(sstate, bstate, st.log))
-        log, info = fused.append_log(st.log, out, bout, self.state.backend.num_kf, iq, cfg)
-        donate(self.state.log, log)
-        raw, self._layout = pack_info(info)
-        return unpack_info(raw.clone(), self._layout)
+        info = unpack_info(self._raw.clone(), self._layout)
+        if not replayed and self.segments.on_card:
+            # every part of the frame has run eagerly now, or runs here once
+            # a process, device, configuration and thread (`warmups`)
+            key = (self.device, self.cfg, threading.get_ident())
+            if key not in warmups:
+                self._warm_up(fr, out)
+                warmups[key] = self.warmup_s
+            self.segments.capture("frame", self._frame, self.REGIONS)
+        return info
 
 
 class BatchedStepGraph:

@@ -16,11 +16,13 @@ state, map included.
 
 Where the JAX package branches with `lax.cond` on the keyframe flag, this
 step branches on `SlamOutput.host.is_keyframe`, which `slam_step` has read
-already, and the map rebuild branches on `BackendOutput.accepted`, which
-`keyframe_core` has read already: this module reads nothing from the device.
-The keyframe's payload is written into the store (`loop.write_slot`) on
-keyframes only; on any other frame the reference's write lands nowhere, so
-the state is the same.
+already; inside the keyframe branch the map rebuild is a `graph_cond.cond`
+region on the device flag `loop_found` ("rebuild"), as the back-end's
+compaction, verification and acceptance are (`loop.keyframe_core`), so
+that `pipeline.frame_graph.FrameGraph` captures the whole branch as one
+conditional region of its frame graph.  The keyframe's payload is written
+into the store (`loop.write_slot`) on keyframes only; on any other frame
+the reference's write lands nowhere, so the state is the same.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
-from ..utils import index, se3
+from ..utils import graph_cond, index, se3
 from ..utils.se3 import Pose
 from . import loop as loop_mod
 from . import mapping, slam
@@ -148,8 +150,9 @@ def fused_step(
     )
     iq, era_qual = frame_quality(state.log, out, cfg)
     if out.host.is_keyframe:
-        sstate, bstate, bout = keyframe_branch(
+        sstate, small, slot, bout = keyframe_branch(
             state.backend, sstate, out, xyz, inten, timestamp, era_qual, cfg)
+        bstate = loop_mod.write_slot(state.backend, small, slot)
     else:
         bout = no_keyframe_output(dev)
         bstate = state.backend
@@ -179,12 +182,13 @@ def frame_quality(log: FrameLog, out: slam.SlamOutput, cfg: SlamConfig
 def keyframe_branch(backend: loop_mod.BackendState, sstate: slam.SlamState,
                     out: slam.SlamOutput, xyz: torch.Tensor, inten: torch.Tensor,
                     timestamp, era_qual: torch.Tensor, cfg: SlamConfig
-                    ) -> tuple[slam.SlamState, loop_mod.BackendState,
+                    ) -> tuple[slam.SlamState, loop_mod.SmallState, loop_mod.SlotData,
                                loop_mod.BackendOutput]:
     """The keyframe back-end on the frame's (undistorted) scan, then the live
     correction feedback into the step's new state: returns that state with
-    its re-based (and perhaps rebuilt) maps, the new back-end state and the
-    back-end's output."""
+    its re-based (and perhaps rebuilt) maps, the back-end's new small state,
+    the keyframe's payload for `loop.write_slot` and the back-end's output
+    (the reference's `kf_branch`)."""
     scan_valid = torch.sqrt(torch.sum(xyz * xyz, dim=-1)) >= cfg.sensor.min_range
     small, slot, bout = loop_mod.keyframe_core(
         loop_mod.small_of(backend), backend, xyz, scan_valid,
@@ -201,21 +205,26 @@ def keyframe_branch(backend: loop_mod.BackendState, sstate: slam.SlamState,
     # composes unconditionally.
     small = loop_mod.apply_correction(small, bout.loop_found, bout.correction)
     mstate = mapping.apply_correction(sstate.mapping, bout.correction)
-    if cfg.mapping.rebuild_on_loop and bout.accepted:
-        # logical views of the rebuild clouds; the CURRENT keyframe's
-        # payload is not in the store yet, so patch it in
-        k = small.num_kf - 1
-        sl = small.kf_slot.long()
-        b = backend
-        mstate = mapping.rebuild_maps(
-            mstate,
-            index.put(b.kf_ground[sl], k, out.ground_ds),
-            index.put(b.kf_ground_mask[sl], k, out.ground_ds_mask),
-            index.put(b.kf_corner[sl], k, out.corner_ds),
-            index.put(b.kf_corner_mask[sl], k, out.corner_ds_mask),
-            small.graph.poses, small.num_kf, cfg)
-    bstate = loop_mod.write_slot(backend, small, slot)
-    return sstate._replace(mapping=mstate), bstate, bout
+    if cfg.mapping.rebuild_on_loop:
+        def rebuild():
+            # logical views of the rebuild clouds; the CURRENT keyframe's
+            # payload is not in the store yet, so patch it in
+            k = small.num_kf - 1
+            sl = small.kf_slot.long()
+            b = backend
+            ms = mapping.rebuild_maps(
+                mstate,
+                index.put(b.kf_ground[sl], k, out.ground_ds),
+                index.put(b.kf_ground_mask[sl], k, out.ground_ds_mask),
+                index.put(b.kf_corner[sl], k, out.corner_ds),
+                index.put(b.kf_corner_mask[sl], k, out.corner_ds_mask),
+                small.graph.poses, small.num_kf, cfg)
+            return ms.ground_map, ms.corner_map
+
+        ground, corner = graph_cond.cond(bout.loop_found, "rebuild", rebuild,
+                                         (mstate.ground_map, mstate.corner_map))
+        mstate = mstate._replace(ground_map=ground, corner_map=corner)
+    return sstate._replace(mapping=mstate), small, slot, bout
 
 
 def append_log(log: FrameLog, out: slam.SlamOutput, bout: loop_mod.BackendOutput,

@@ -16,10 +16,14 @@ reference's back-end threads CS-4/CS-5, `src/intensity_feature_tracker.cpp:
 - on acceptance: loop edge + the dense PGO solve
 
 The JAX package's three `lax.cond`s (capacity compaction, "candidate found",
-"loop accepted") are Python `if`s on device scalars here: one host read
-each, plus one inside `posegraph.consistent_loop_mask`.  `BackendOutput`
-hands the last one out (`accepted`), so a caller need not read it again.  Functions return
-new state tensors and leave their inputs untouched.
+"loop accepted") are `graph_cond.cond` regions here ("compact", "verify",
+"accept"; "verify" holds "accept" and the PCM vote's chain of steps):
+eagerly each reads its predicate on the host; inside a captured CUDA graph
+(`pipeline.frame_graph.FrameGraph`'s keyframe region) each is a conditional
+node that hands its results on through buffers made before it, and nothing
+here reads the device.  Functions return new state tensors and leave their
+inputs untouched (`write_slot_`, the captured frame's payload write, is the
+one in-place exception).
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import torch
 from ..config import SlamConfig
 from ..ops import bow, icp, scancontext
 from ..ops.voxel import compact, voxel_downsample
-from ..utils import index, se3
+from ..utils import graph_cond, index, se3
 from ..utils.se3 import Pose
+from ..utils.tree import clone_state, donate
 from . import posegraph
 
 
@@ -105,8 +110,6 @@ class BackendOutput(NamedTuple):
     icp_inlier_frac: torch.Tensor  # () f32
     icp_int_corr: torch.Tensor   # () f32 (-2 when nothing was verified)
     compacted: torch.Tensor      # () bool — store decimated before ingest
-    accepted: bool = False       # `loop_found` as `keyframe_core` read it on
-    # the host, for a caller that branches on it (the map rebuild)
 
 
 _PAYLOAD_FIELDS = (
@@ -121,10 +124,6 @@ _SLOT_OF = dict(zip(_PAYLOAD_FIELDS, (
 
 def small_of(state: BackendState) -> SmallState:
     return SmallState(**{f: getattr(state, f) for f in SmallState._fields})
-
-
-def merge_small(state: BackendState, small: SmallState) -> BackendState:
-    return state._replace(**small._asdict())
 
 
 def _sizes(cfg: SlamConfig):
@@ -151,17 +150,26 @@ def empty_slot(cfg: SlamConfig, device="cuda") -> SlotData:
 def write_slot(state: BackendState, small: SmallState, slot: SlotData
                ) -> BackendState:
     """Merge the small state and write the payload into its physical slot
-    (nothing is written when `phys` is out of range)."""
+    (nothing is written when `phys` is out of range): `write_slot_` on a
+    copy, the inputs untouched."""
+    out = clone_state(state)
+    write_slot_(out, small, slot)
+    return out
+
+
+def write_slot_(state: BackendState, small: SmallState, slot: SlotData) -> None:
+    """`write_slot` into `state`'s own tensors, in place (a state no one else
+    holds: a copy, or the captured frame's buffers): the small state copied
+    in, the payload row written at its physical slot (kept where `phys` is
+    out of range)."""
     K = state.kf_slot.shape[0]
-    # an out-of-range slot writes the spare row that is sliced off again
-    p = torch.clamp(slot.phys.long(), max=K)
-    upd = {}
+    write = slot.phys < K
+    p = torch.clamp(slot.phys.long(), max=K - 1)
     for f in _PAYLOAD_FIELDS:
         arr = getattr(state, f)
-        out = torch.cat([arr, arr[:1]])
-        out.index_copy_(0, p.reshape(1), getattr(slot, _SLOT_OF[f])[None])
-        upd[f] = out[:K]
-    return merge_small(state, small)._replace(**upd)
+        row = torch.where(write, getattr(slot, _SLOT_OF[f]), index.take(arr, p))
+        arr.index_copy_(0, p.reshape(1), row[None])
+    donate(small_of(state), small)
 
 
 def logical_view(state: BackendState) -> BackendState:
@@ -274,8 +282,7 @@ def keyframe_core(
 
     # capacity: decimate the store + graph by 2 when full
     need_compact = small.num_kf >= lc.max_keyframes
-    if bool(need_compact):
-        small = _compact_small(small)
+    small = graph_cond.cond(need_compact, "compact", lambda: _compact_small(small), small)
     k = small.num_kf.long()
 
     # ingest: physical slot + node + descriptors
@@ -363,86 +370,86 @@ def keyframe_core(
     cooled = (k - state.last_loop_kf) >= lc.loop_cooldown_kf
     found = (sc_found | bow_found | rad_found) & cooled
 
-    if not bool(found):
-        bout = BackendOutput(
-            loop_found=false, loop_idx=minus1,
-            icp_fitness=index.scalar(torch.inf, device=dev),
-            correction=Pose.identity(device=dev),
-            sc_found=found, sc_dist=sc_dist,
-            icp_inlier_frac=index.scalar(0.0, device=dev),
-            icp_int_corr=index.scalar(-2.0, device=dev),
-            compacted=need_compact,
-        )
-        return state, slot, bout
-
-    # verify: submap of the loop keyframe +/- submap_window assembled in the
-    # LOOP keyframe's local frame; ICP of the current sensor-frame cloud
-    # against it, initialized with the ScanContext yaw (else the rotation of
-    # the graph's relative estimate)
-    li = loop_idx.long()
-    T_cur = Pose(index.take(g.poses.q, k), index.take(g.poses.t, k))
-    T_loop = Pose(index.take(g.poses.q, li), index.take(g.poses.t, li))
-    win = torch.arange(-lc.submap_window, lc.submap_window + 1, device=dev)
-    idxs = torch.minimum(torch.clamp(li + win, min=0),
-                         torch.clamp(state.num_kf.long() - 1, min=0))
-    Ti = Pose(g.poses.q[idxs], g.poses.t[idxs])                        # (W,)
-    rel_i = se3.compose(se3.inverse(T_loop), Ti)
-    si = state.kf_slot[idxs].long()
-    tgt = se3.transform_points(rel_i, payload.kf_cloud[si]).reshape(-1, 3)
-    tgt_mask = payload.kf_cloud_mask[si].reshape(-1)
-    tgt_int = payload.kf_cloud_int[si].reshape(-1)
-    src, src_mask = cloud, cmask
-    half = 0.5 * torch.where(sc_found, yaw, 0.0)
-    zero = torch.zeros_like(half)
-    q_sc = torch.stack([torch.cos(half), zero, zero, torch.sin(half)])
-    q_graph = se3.compose(se3.inverse(T_loop), T_cur).q
-    init = Pose(torch.where(sc_found, q_sc, q_graph), torch.zeros(3, device=dev))
-    if lc.use_crop:
-        # CropBox(+/-CROP_SIZE) around the revisited place
-        src_mask = src_mask & torch.all(torch.abs(src) <= lc.crop_size, dim=-1)
-        tgt_mask = tgt_mask & torch.all(torch.abs(tgt) <= lc.crop_size, dim=-1)
-    res = icp.icp_align(src, src_mask, tgt, tgt_mask, init,
-                        iters=lc.icp_iters, max_corr_dist=lc.icp_max_corr)
-    int_corr = icp.intensity_correlation(cint, tgt_int, res)
-    # between measurement: M maps cur-sensor to loop-local, Z_{cur->loop} = M^-1
-    rel = se3.inverse(res.pose)
-    # consistency gate: implied correction whitened by the drift envelope
-    rel_est = se3.compose(se3.inverse(T_cur), T_loop)
-    r_gate = se3.se3_log(se3.compose(se3.inverse(rel), rel_est))
-    step_len = torch.where((ar >= 1) & (ar < g.num_nodes), _norm(g.odo_rel.t), 0.0)
-    cum_len = torch.cumsum(step_len, 0)
-    path_e = torch.clamp(torch.abs(index.take(cum_len, k) - index.take(cum_len, li)),
-                         min=1.0)
-    n_e = torch.clamp(torch.abs(k - li).float(), min=1.0)
-    odo_var = index.constant(lc.odom_noise, device=dev)
-    env = n_e * odo_var + torch.cat([
-        ((lc.loop_drift_rot_rate * path_e) ** 2).expand(3),
-        ((lc.loop_drift_rate * path_e) ** 2).expand(3),
-    ])
-    chi2 = torch.sum(r_gate * r_gate / env)
-    # tentatively add the edge; the candidate must join the PCM clique
-    l_new = (g.num_loops % g.loop_valid.shape[0]).long()
-    g_cand = posegraph.add_loop(g, k, loop_idx, rel, res.fitness, lc)
-    if lc.use_pcm:
-        active = posegraph.consistent_loop_mask(
-            g_cand, odo_noise=lc.odom_noise, drift_rate=lc.loop_drift_rate,
-            drift_rot_rate=lc.loop_drift_rot_rate, chi2_max=lc.pcm_chi2)
-        pcm_ok = index.take(active, l_new)
-    else:
-        active, pcm_ok = g_cand.loop_valid, torch.ones((), dtype=torch.bool, device=dev)
-    accept = (
-        (res.fitness <= lc.icp_fitness_score)
-        & (res.inlier_frac >= lc.icp_min_inlier_frac)
-        & (chi2 <= lc.loop_gate_chi2)
-        & (int_corr >= lc.loop_intensity_min)
-        & pcm_ok
+    no_loop = BackendOutput(
+        loop_found=false, loop_idx=minus1,
+        icp_fitness=index.scalar(torch.inf, device=dev),
+        correction=Pose.identity(device=dev),
+        sc_found=found, sc_dist=sc_dist,
+        icp_inlier_frac=index.scalar(0.0, device=dev),
+        icp_int_corr=index.scalar(-2.0, device=dev),
+        compacted=need_compact,
     )
-    g_out = g
-    accepted = bool(accept)
-    if accepted:
-        g_out = g_cand
-        if lc.online_pgo:
-            g_out = posegraph.optimize(
+
+    def verify():
+        """ICP verification, gates, PCM and, where accepted, the loop edge
+        and the PGO: (the graph, last_loop_kf, the back-end's output)."""
+        # submap of the loop keyframe +/- submap_window assembled in the
+        # LOOP keyframe's local frame; ICP of the current sensor-frame cloud
+        # against it, initialized with the ScanContext yaw (else the
+        # rotation of the graph's relative estimate)
+        li = loop_idx.long()
+        T_cur = Pose(index.take(g.poses.q, k), index.take(g.poses.t, k))
+        T_loop = Pose(index.take(g.poses.q, li), index.take(g.poses.t, li))
+        win = torch.arange(-lc.submap_window, lc.submap_window + 1, device=dev)
+        idxs = torch.minimum(torch.clamp(li + win, min=0),
+                             torch.clamp(state.num_kf.long() - 1, min=0))
+        Ti = Pose(g.poses.q[idxs], g.poses.t[idxs])                        # (W,)
+        rel_i = se3.compose(se3.inverse(T_loop), Ti)
+        si = state.kf_slot[idxs].long()
+        tgt = se3.transform_points(rel_i, payload.kf_cloud[si]).reshape(-1, 3)
+        tgt_mask = payload.kf_cloud_mask[si].reshape(-1)
+        tgt_int = payload.kf_cloud_int[si].reshape(-1)
+        src, src_mask = cloud, cmask
+        half = 0.5 * torch.where(sc_found, yaw, 0.0)
+        zero = torch.zeros_like(half)
+        q_sc = torch.stack([torch.cos(half), zero, zero, torch.sin(half)])
+        q_graph = se3.compose(se3.inverse(T_loop), T_cur).q
+        init = Pose(torch.where(sc_found, q_sc, q_graph), torch.zeros(3, device=dev))
+        if lc.use_crop:
+            # CropBox(+/-CROP_SIZE) around the revisited place
+            src_mask = src_mask & torch.all(torch.abs(src) <= lc.crop_size, dim=-1)
+            tgt_mask = tgt_mask & torch.all(torch.abs(tgt) <= lc.crop_size, dim=-1)
+        res = icp.icp_align(src, src_mask, tgt, tgt_mask, init,
+                            iters=lc.icp_iters, max_corr_dist=lc.icp_max_corr)
+        int_corr = icp.intensity_correlation(cint, tgt_int, res)
+        # between measurement: M maps cur-sensor to loop-local, Z_{cur->loop} = M^-1
+        rel = se3.inverse(res.pose)
+        # consistency gate: implied correction whitened by the drift envelope
+        rel_est = se3.compose(se3.inverse(T_cur), T_loop)
+        r_gate = se3.se3_log(se3.compose(se3.inverse(rel), rel_est))
+        step_len = torch.where((ar >= 1) & (ar < g.num_nodes), _norm(g.odo_rel.t), 0.0)
+        cum_len = torch.cumsum(step_len, 0)
+        path_e = torch.clamp(torch.abs(index.take(cum_len, k) - index.take(cum_len, li)),
+                             min=1.0)
+        n_e = torch.clamp(torch.abs(k - li).float(), min=1.0)
+        odo_var = index.constant(lc.odom_noise, device=dev)
+        env = n_e * odo_var + torch.cat([
+            ((lc.loop_drift_rot_rate * path_e) ** 2).expand(3),
+            ((lc.loop_drift_rate * path_e) ** 2).expand(3),
+        ])
+        chi2 = torch.sum(r_gate * r_gate / env)
+        # tentatively add the edge; the candidate must join the PCM clique
+        l_new = (g.num_loops % g.loop_valid.shape[0]).long()
+        g_cand = posegraph.add_loop(g, k, loop_idx, rel, res.fitness, lc)
+        if lc.use_pcm:
+            active = posegraph.consistent_loop_mask(
+                g_cand, odo_noise=lc.odom_noise, drift_rate=lc.loop_drift_rate,
+                drift_rot_rate=lc.loop_drift_rot_rate, chi2_max=lc.pcm_chi2)
+            pcm_ok = index.take(active, l_new)
+        else:
+            active, pcm_ok = g_cand.loop_valid, torch.ones((), dtype=torch.bool, device=dev)
+        accept = (
+            (res.fitness <= lc.icp_fitness_score)
+            & (res.inlier_frac >= lc.icp_min_inlier_frac)
+            & (chi2 <= lc.loop_gate_chi2)
+            & (int_corr >= lc.loop_intensity_min)
+            & pcm_ok
+        )
+
+        def close():
+            if not lc.online_pgo:
+                return g_cand
+            return posegraph.optimize(
                 g_cand, gn_iters=lc.pgo_gn_iters, cg_iters=64,
                 odo_noise=lc.odom_noise, prior_noise=lc.prior_noise,
                 loop_cauchy_c=lc.loop_cauchy_c,
@@ -450,24 +457,25 @@ def keyframe_core(
                 drift_rot_rate=lc.loop_drift_rot_rate,
                 loop_active=active,
             )
-    T_new = Pose(index.take(g_out.poses.q, k), index.take(g_out.poses.t, k))
-    # raw->PGO-frame correction; identity unless accepted
-    corr = se3.pose_where(accept, se3.compose(T_new, se3.inverse(map_pose)),
-                          Pose.identity(device=dev))
-    state = state._replace(
-        graph=g_out,
-        last_loop_kf=torch.where(accept, k.to(torch.int32), state.last_loop_kf),
-    )
-    bout = BackendOutput(
-        loop_found=accept, loop_idx=loop_idx,
-        icp_fitness=res.fitness, correction=corr,
-        sc_found=found, sc_dist=sc_dist,
-        icp_inlier_frac=res.inlier_frac,
-        icp_int_corr=int_corr,
-        compacted=need_compact,
-        accepted=accepted,
-    )
-    return state, slot, bout
+
+        g_out = graph_cond.cond(accept, "accept", close, g)
+        T_new = Pose(index.take(g_out.poses.q, k), index.take(g_out.poses.t, k))
+        # raw->PGO-frame correction; identity unless accepted
+        corr = se3.pose_where(accept, se3.compose(T_new, se3.inverse(map_pose)),
+                              Pose.identity(device=dev))
+        bout = BackendOutput(
+            loop_found=accept, loop_idx=loop_idx,
+            icp_fitness=res.fitness, correction=corr,
+            sc_found=found, sc_dist=sc_dist,
+            icp_inlier_frac=res.inlier_frac,
+            icp_int_corr=int_corr,
+            compacted=need_compact,
+        )
+        return g_out, torch.where(accept, k.to(torch.int32), state.last_loop_kf), bout
+
+    graph, last_loop_kf, bout = graph_cond.cond(
+        found, "verify", verify, (g, state.last_loop_kf, no_loop))
+    return state._replace(graph=graph, last_loop_kf=last_loop_kf), slot, bout
 
 
 def backend_step(

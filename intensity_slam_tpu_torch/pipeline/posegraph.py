@@ -12,7 +12,10 @@ Port notes: Jacobians are forward-mode (`torch.func.jvp`, six tangents per
 batch, as the JAX package's `jax.jacfwd`); `lax.associative_scan` becomes a
 log-step (Hillis-Steele) prefix composition; a failed Cholesky
 (`cholesky_ex` info > 0) yields a NaN candidate, which the cost test then
-rejects, as in the JAX package.  Functions return new tensors and leave
+rejects, as in the JAX package; the factor is applied by two triangular
+solves.  Nothing here reads the device, so `optimize` and
+`consistent_loop_mask` run inside a captured CUDA graph (the keyframe
+branch's accept and verify regions, `pipeline.frame_graph`).  Functions return new tensors and leave
 their inputs untouched.
 """
 
@@ -24,7 +27,7 @@ import torch
 from torch.func import jvp
 
 from ..config import LoopConfig
-from ..utils import index, se3
+from ..utils import graph_cond, index, se3
 from ..utils.se3 import Pose
 
 
@@ -293,6 +296,14 @@ def _frozen_cost(poses: Pose, odo_rel: Pose, odo_si_eff,
     return o + l
 
 
+def _cholesky_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L L^T x = b, by two triangular solves on the lower factor `L`:
+    cuBLAS trsm on the card, which a CUDA graph captures (`cholesky_solve`
+    runs magma's batched solve there, which it does not)."""
+    z = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)
+
+
 def _dense_update_multi(poses: Pose, node_valid, odo_ok, rel_est: Pose,
                         r_odo, J_odo, Hl, bl, lams) -> Pose:
     """Dense Cholesky damped-GN update for a BATCH of dampings at once,
@@ -327,7 +338,7 @@ def _dense_update_multi(poses: Pose, node_valid, odo_ok, rel_est: Pose,
     A = Hn[None] + lam[:, None, None] * torch.eye(n, device=dev)[None]
     L, info = torch.linalg.cholesky_ex(A)
     L = torch.where((info > 0)[:, None, None], torch.nan, L)
-    y = torch.cholesky_solve(rhs[None, :, None].expand(B, n, 1), L)[..., 0]
+    y = _cholesky_solve(L, rhs[None, :, None].expand(B, n, 1))[..., 0]
     dx = (y / dg).reshape(B, K, 6)
 
     # per-edge trust region
@@ -474,21 +485,17 @@ def chain_poses(odo_rel: Pose, num_nodes: torch.Tensor) -> Pose:
     return _prefix_compose(seq)
 
 
-def consistent_loop_mask(
+def pairwise_consistency(
     g: PoseGraph,
     odo_noise: tuple = (2.5e-5, 2.5e-5, 2.5e-5, 4e-4, 4e-4, 4e-4),
     drift_rate: float = 0.05,
     drift_rot_rate: float = 0.005,
     chi2_max: float = 25.0,
-) -> torch.Tensor:
-    """(L,) bool: the greedy maximum mutually-consistent clique of loop
-    edges (PCM, Mangelson et al. 2018): two loops are consistent when the
-    cycle residual through the raw odometry chain fits the drift envelope
-    plus both measurements' noise; the clique grows greedily from the
-    highest-degree loop.  The JAX package runs L growth steps; each adds at
-    most one loop and a step that adds none changes nothing after it, so
-    here the loop stops after (number of valid loops - 1) steps — one host
-    read."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The PCM vote's consistency graph: (L, L) bool, loops a and b
+    consistent (both valid, the cycle residual through the raw odometry
+    chain within the drift envelope plus both measurements' noise; a valid
+    loop with itself), and each loop's degree (L,)."""
     L = g.loop_valid.shape[0]
     dev = g.loop_valid.device
     C = chain_poses(g.odo_rel, g.num_nodes)
@@ -524,15 +531,42 @@ def consistent_loop_mask(
     Cmat = pair_ok & (chi2 <= chi2_max)
     Cmat = Cmat | torch.diag(valid)
     Cmat = Cmat & Cmat.T
+    return Cmat, torch.sum(Cmat, dim=1)
 
-    deg = torch.sum(Cmat, dim=1)
+
+def consistent_loop_mask(
+    g: PoseGraph,
+    odo_noise: tuple = (2.5e-5, 2.5e-5, 2.5e-5, 4e-4, 4e-4, 4e-4),
+    drift_rate: float = 0.05,
+    drift_rot_rate: float = 0.005,
+    chi2_max: float = 25.0,
+) -> torch.Tensor:
+    """(L,) bool: the greedy maximum mutually-consistent clique of loop
+    edges (PCM, Mangelson et al. 2018) over `pairwise_consistency`'s graph;
+    the clique grows greedily from the highest-degree loop.  The JAX package
+    runs L growth steps; each adds at most one loop and a step that adds
+    none changes nothing after it, so here each of the L - 1 steps after the
+    pivot runs only where the step before it added a loop
+    (`graph_cond.when`): eagerly the loop stops at the first step that adds
+    none; under capture each step is an If node on that flag, so a replay
+    skips the rest of the chain."""
+    L = g.loop_valid.shape[0]
+    dev = g.loop_valid.device
+    valid = g.loop_valid
+    Cmat, deg = pairwise_consistency(g, odo_noise, drift_rate, drift_rot_rate, chi2_max)
     pivot = torch.argmax(torch.where(valid, deg, -1))
-    S = torch.zeros((L,), dtype=torch.bool, device=dev)
-    S[pivot] = torch.any(valid)
-    for _ in range(int(torch.sum(valid)) - 1):
-        with_all = torch.all(torch.where(S[None, :], Cmat, True), dim=1)
-        cand = valid & (~S) & with_all
-        score = torch.where(cand, deg, -1)
-        nxt = torch.argmax(score)
-        S[nxt] = S[nxt] | (score[nxt] >= 0)
+    S = index.put(torch.zeros((L,), dtype=torch.bool, device=dev), pivot, torch.any(valid))
+    grew = torch.any(valid)     # the clique grew at the last step
+    for _ in range(L - 1):
+        with graph_cond.when(grew, "pcm", kernels=False) as taken:
+            if taken:
+                with_all = torch.all(torch.where(S[None, :], Cmat, True), dim=1)
+                cand = valid & (~S) & with_all
+                score = torch.where(cand, deg, -1)
+                nxt = torch.argmax(score)
+                added = index.take(score, nxt) >= 0
+                S.copy_(index.put(S, nxt, index.take(S, nxt) | added))
+                grew.copy_(added)
+        if not taken:
+            break       # eagerly: every later step would be skipped too
     return S

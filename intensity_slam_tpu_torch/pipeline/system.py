@@ -10,10 +10,11 @@ log.  This class is a thin wrapper:
 
 - `process` runs one frame through a `frame_graph.FrameGraph` (the fused
   step replayed from one CUDA graph on the card, its solves' early exits,
-  fallback, log append and capacity policy behind conditional nodes, the
-  counterpart of the reference's `jax.jit(fused_step,
-  donate_argnums=(0,))`: a non-keyframe frame is one replay and one host
-  read, the flags) and returns the device FrameInfo WITHOUT reading it.  Read any field if you want to wait
+  fallback, capacity policy and keyframe branch behind conditional nodes,
+  the counterpart of the reference's `jax.jit(fused_step,
+  donate_argnums=(0,))`: every frame, keyframes and accepted loops
+  included, is one replay and one host read, the flags) and returns the
+  device FrameInfo WITHOUT reading it.  Read any field if you want to wait
   for the frame.  The state is updated in place: `state` is the live
   buffers, and `snapshot()` gives a copy that later frames leave alone.
 - trajectory/loops/keyframe accessors fetch device state on demand,

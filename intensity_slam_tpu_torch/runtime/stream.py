@@ -9,8 +9,9 @@ reference's process/thread architecture maps onto the host runtime so:
                                           thread (scanlog)
   ascanRegistration front-end (10 Hz)     caller thread: the fused step
                                           through `FrameGraph` (one CUDA
-                                          graph replay a non-keyframe)
-  loop/factor threads (100 Hz / 10 Hz)    the keyframe branch of fused_step
+                                          graph replay a frame)
+  loop/factor threads (100 Hz / 10 Hz)    the keyframe branch of fused_step,
+                                          a region of that graph
   mutex-guarded deques + frame drop       native Channel(drop_oldest) to
                                           the pose-writer thread
   blocking debug ofstream                 C++ async TrajectoryWriter
@@ -20,7 +21,7 @@ a `pipeline.frame_graph.FrameGraph`, exactly as `SlamSystem.process` does
 (the counterpart of the reference's `jax.jit(fused_step,
 donate_argnums=(0,))`: `state` is updated in place), and reads nothing from
 the device of its own: the host syncs it makes are the step's (one a
-non-keyframe frame after the capture, the flags read).
+frame after the capture, keyframes included: the flags read).
 
 - Uploads go through a ring of `depth` pinned host slots with
   `non_blocking` copies; a CUDA event recorded after each copy guards its

@@ -69,6 +69,37 @@ def peaks(dev) -> Peaks | None:
     return PEAKS.get(torch.cuda.get_device_name(dev))
 
 
+def detach_profiler_after_traces() -> None:
+    """Have `torch.profiler` tear its CUPTI session down at the end of each
+    trace (`TEARDOWN_CUPTI=1`).  Left attached, as it is by default, CUPTI
+    makes every later replay of a large CUDA graph slower: `FrameGraph`'s
+    frame graph of the full-width slice replayed in 13.7 ms before a trace
+    and in 36.5 ms after it, from the same state, on an NVIDIA H100 80GB
+    HBM3 at 700 W (`tools/torch_first_use.py`).  A script that traces some
+    calls and times others calls this before its first trace."""
+    os.environ["TEARDOWN_CUPTI"] = "1"
+
+
+@contextlib.contextmanager
+def profile(activities):
+    """`torch.profiler.profile(activities=activities)` made sure to record.
+    After `detach_profiler_after_traces`, in a process that holds CUDA
+    graphs, a trace that recorded leaves the next one empty (it only sets
+    CUPTI up again), so traces alternate, recorded and empty: one or two
+    throwaway traces of a one-element fill first leave the next one a
+    recording one, in either mode."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as primer:
+            torch.zeros(1, device="cuda").fill_(1.0)
+            torch.cuda.synchronize()
+        if not any(e.device_type.name == "CUDA" for e in primer.events()):
+            break
+    with torch_profile(activities=activities) as prof:
+        yield prof
+
+
 def synchronize(dev) -> None:
     """Wait for the card's queued work (nothing to wait for on the CPU)."""
     if torch.device(dev).type == "cuda":

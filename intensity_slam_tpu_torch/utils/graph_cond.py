@@ -29,18 +29,26 @@ counterpart of the JAX package's `lax.cond` and `lax.while_loop` under
 
 A block hands its results to the code after it only through buffers made
 before the node, written with `copy_`: a tensor that a body allocates holds
-garbage after a replay that skipped the body.
+garbage after a replay that skipped the body.  `cond(pred, name, fn,
+default)` is the functional form, the counterpart of `lax.cond(pred, fn,
+lambda: default)`: a copy of `default` made before the node, overwritten by
+`fn()`'s result inside it.
+
+`forcing(names, seconds)` makes the regions `names` run eagerly whatever
+their predicates say, each timed (its own seconds, those of the regions
+nested in it apart): the warm-up of a region that no step has taken before
+its capture (`pipeline.frame_graph.FrameGraph`).
 
 **Kernel counts.**  A capture records the hand kernels' launches without
 making them, and a graph owner adds them back on every replay
 (`pipeline.frame_graph.Segments`).  Inside a region they happen only on the
 replays that take it, so `when` keeps, by region name, the launches
-captured inside each region (`recorded`; a nested region's are counted in
-every region around it too, and a node's own handle kernel in the region
-around the node), for the owner to add where the host learns that the
-region ran.  A region opened with `kernels=False` (a solver's iteration,
-whose count the host never reads) raises at capture if a hand kernel was
-captured inside it.  `set_handle.launches` counts the handle kernel.
+captured inside each region outside the regions nested in it (`recorded`;
+a node's own handle kernel counts in the region around the node), for the
+owner to add where the host learns that the region ran.  A region opened
+with `kernels=False` (a solver's iteration, a PCM growth step, whose count
+the host never reads) raises at capture if a hand kernel was captured
+inside it.  `set_handle.launches` counts the handle kernel.
 
 The library is compiled from `csrc/graph_cond.cu` at first use
 (`utils.nvcc`) into `intensity_slam_tpu_torch/_build/libisl_graph_cond.so`.
@@ -52,12 +60,14 @@ import collections
 import contextlib
 import ctypes
 import os
+import time
 import weakref
 
 import torch
 
-from ..ops import eigsym, pallas_nn
+from ..ops import eigsym, pallas_nn, svd3
 from . import nvcc
+from .tree import clone_state, donate
 
 SOURCE = os.path.join(nvcc.CSRC_DIR, "graph_cond.cu")
 LIBRARY = os.path.join(nvcc.BUILD_DIR, "libisl_graph_cond.so")
@@ -69,6 +79,9 @@ _lib = None
 _captures: list = []    # the graphs being captured through `capture`
 _body_streams: list = []    # one a nesting depth
 _depth = 0
+_open: list = []        # launches of the regions nested in each open region
+_forced: dict = {}      # region name -> its seconds' dict, while `forcing`
+_timing: list = []      # seconds of the regions nested in each forced one
 
 ran: collections.Counter = collections.Counter()     # blocks run on a host read
 recorded: dict[str, list[int]] = {}     # launches captured in each region
@@ -112,7 +125,7 @@ set_handle.launches = 0
 
 # the hand kernels' wrappers, each with its `launches` count
 KERNEL_WRAPPERS = (eigsym.eigh, eigsym.eigvalsh, pallas_nn.pack_targets,
-                   pallas_nn.nearest_neighbor_packed, set_handle)
+                   pallas_nn.nearest_neighbor_packed, svd3.svd3, set_handle)
 
 
 def launch_counts() -> list[int]:
@@ -187,6 +200,10 @@ def when(pred: torch.Tensor, name: str, kernels: bool = True):
         raise ValueError(f"a condition is a 0-d bool tensor, not {pred.dtype} "
                          f"{tuple(pred.shape)}")
     if not capturing(pred.device):
+        if name in _forced:
+            with _timed(name, pred.device):
+                yield True
+            return
         taken = _host_bool(pred)
         if taken:
             ran[name] += 1
@@ -194,10 +211,63 @@ def when(pred: torch.Tensor, name: str, kernels: bool = True):
         return
     with _body(pred):
         before = launch_counts()
-        yield True
+        _open.append([0] * len(before))
+        try:
+            yield True
+        finally:
+            nested = _open.pop()
         inside = [a - b for a, b in zip(launch_counts(), before)]
-    if any(inside) and not kernels:
+    if _open:
+        _open[-1] = [t + n for t, n in zip(_open[-1], inside)]
+    own = [n - m for n, m in zip(inside, nested)]
+    if any(own) and not kernels:
         raise RuntimeError(f"hand kernels captured inside region {name!r}, whose "
-                           f"replays the host does not count: {inside}")
-    total = recorded.get(name, [0] * len(inside))
-    recorded[name] = [t + n for t, n in zip(total, inside)]
+                           f"replays the host does not count: {own}")
+    total = recorded.get(name, [0] * len(own))
+    recorded[name] = [t + n for t, n in zip(total, own)]
+
+
+def cond(pred: torch.Tensor, name: str, fn, default):
+    """`lax.cond(pred, fn, lambda: default)`: a copy of the tree `default`,
+    made before the region, overwritten by the tree `fn()` (the same
+    structure, shapes and dtypes) inside `when(pred, name)`.  The inputs are
+    left untouched."""
+    out = clone_state(default)
+    with when(pred, name) as taken:
+        if taken:
+            donate(out, fn())
+    return out
+
+
+@contextlib.contextmanager
+def forcing(names, seconds: dict):
+    """Run the regions `names` eagerly for the length of the block whatever
+    their predicates, adding each one's own seconds (the device synchronized
+    around it, the regions nested in it apart) into `seconds`."""
+    saved = dict(_forced)
+    _forced.update({n: seconds for n in names})
+    try:
+        yield
+    finally:
+        _forced.clear()
+        _forced.update(saved)
+
+
+@contextlib.contextmanager
+def _timed(name: str, device: torch.device):
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    sync()
+    t0 = time.perf_counter()
+    _timing.append(0.0)
+    try:
+        yield
+    finally:
+        sync()
+        nested = _timing.pop()
+        dt = time.perf_counter() - t0
+        if _timing:
+            _timing[-1] += dt
+        seconds = _forced[name]
+        seconds[name] = seconds.get(name, 0.0) + dt - nested

@@ -17,11 +17,12 @@ host:
   guard of tests/test_torch_frame_graph.py) are bit-equal to the
   `fused_step` and `slam_step_batched` loops over corridor frames with
   keyframes and textureless skips; the fallback region runs exactly on the
-  `skip & has_prev` frames (any session's, in a batch), the log region
-  exactly on the non-keyframes;
+  `skip & has_prev` frames (any session's, in a batch), the keyframe region
+  exactly on the keyframes;
 - a capture's launch bookkeeping (`frame_graph.Segments`: the hand kernels'
-  launches recorded outside and inside each region) adds up, frame by frame,
-  to what the eager frame launches, with the fallback taken and without.
+  launches recorded outside and inside each region, a nested region's apart
+  from the region around it) adds up, frame by frame, to what the eager
+  frame launches, with the fallback taken and without, keyframes included.
 
 No JAX: the early-exit loop, `fused_step` and `slam_step_batched` are held
 to the reference by tests/test_torch_{solver,fused,multisession}.py."""
@@ -162,14 +163,14 @@ def _guarded(owner, names, ran):
 def test_frame_graph_conditional_form_bit_equal_to_fused_step(corridor, cond_forms):
     cfg, xyz, inten, (st, infos) = corridor
     fg = frame_graph.FrameGraph(cfg, "cpu", seed=3)
-    _guarded(fg, ("_front", "_fallback", "_back", "_log"), [])
+    _guarded(fg, ("_front", "_fallback", "_back", "_keyframe", "_log"), [])
     regions = []
     for k in range(FRAMES):
         graph_cond.ran.clear()
         assert _same_info(infos[k], fg.step(xyz[k], inten[k], 0.1 * k)), k
         h = fg.last_output.host
-        regions.append((graph_cond.ran["fallback"], graph_cond.ran["log"],
-                        int(h.skip and h.has_prev), int(not h.is_keyframe)))
+        regions.append((graph_cond.ran["fallback"], graph_cond.ran["keyframe"],
+                        int(h.skip and h.has_prev), int(h.is_keyframe)))
     assert _same_state(st, fg.state)
     assert all(fb == want_fb and lg == want_lg for fb, lg, want_fb, want_lg in regions), regions
     assert any(r[2] for r in regions) and any(r[3] for r in regions)
@@ -230,8 +231,9 @@ def test_region_launches_add_up_to_the_eager_frame(corridor, monkeypatch):
     node's body run once in Python, as the capture records it, the graph
     itself a stand-in) fills `Segments`' bookkeeping; each frame's eager run
     (the regions decided on the host) launches what a replay of that frame
-    is counted: the launches outside the regions, plus the fallback's where
-    it ran and the log's where it ran."""
+    is counted: the launches outside the regions, plus those of each region
+    (the fallback, the keyframe branch and the regions inside it) where the
+    flags say it ran."""
     cfg, xyz, inten, _ = corridor
     for wrapper, name in ((eigsym.eigh, "eigh_plain"), (eigsym.eigvalsh, "eigvalsh_plain")):
         plain = getattr(eigsym, name)
@@ -261,26 +263,30 @@ def test_region_launches_add_up_to_the_eager_frame(corridor, monkeypatch):
         before = graph_cond.launch_counts()
         fg.step(xyz[k], inten[k], 0.1 * k)
         eager.append([a - b for a, b in zip(graph_cond.launch_counts(), before)])
-        h = fg.last_output.host
-        flags.append({"fallback": h.skip and h.has_prev, "log": not h.is_keyframe})
+        flags.append(dict(fg.last_flags))
     capture_mode[0] = True
-    fg.segments.capture("frame", fg._frame, ("fallback", "log"))
+    fg.segments.capture("frame", fg._frame, fg.REGIONS)
     capture_mode[0] = False
     outside, inside = fg.segments.kernels["frame"], fg.segments.region_kernels["frame"]
     hand = len(graph_cond.KERNEL_WRAPPERS) - 1      # the handle kernel is last
     for k, (launched, ran) in enumerate(zip(eager, flags)):
-        if not ran["log"]:
-            continue        # a keyframe's eager branch is not the graph's
         counted = [o + sum(inside[r][i] for r in ran if ran[r]) for i, o in enumerate(outside)]
         assert counted[:hand] == launched[:hand], (k, ran, counted, launched)
-    assert any(f["fallback"] and f["log"] for f in flags)
-    assert any(not f["fallback"] and f["log"] for f in flags)
+    assert any(f["fallback"] and not f["keyframe"] for f in flags)
+    assert any(not f["fallback"] and not f["keyframe"] for f in flags)
+    assert any(f["keyframe"] for f in flags)
     # the solves a replay opens a node for: odometry's, mapping's, both
     # capacity policies', the two regions; the fallback's solves inside it
-    oc, gc, mc = cfg.odometry, cfg.geometric, cfg.mapping
+    oc, gc, mc, lc = cfg.odometry, cfg.geometric, cfg.mapping, cfg.loop
     assert outside[hand] == oc.gn_iters + mc.gn_iters + 2 + 2
     assert inside["fallback"][hand] == gc.odom_outer_iters * gc.odom_gn_iters
-    assert inside["fallback"][1] > 0 and inside["log"][:hand] == [0] * hand
+    assert inside["fallback"][1] > 0
+    # the keyframe region opens compact, verify and rebuild; verify the
+    # PCM vote's L - 1 growth steps and accept; none holds an eigensolver
+    assert inside["keyframe"][hand] == 3
+    assert inside["verify"][hand] == 256 - 1 + 1
+    assert all(inside[r][:2] == [0, 0] for r in fg.REGIONS if r != "fallback")
+    assert lc.use_pcm and mc.rebuild_on_loop
 
 
 # ---- on the card --------------------------------------------------------------

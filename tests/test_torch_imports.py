@@ -17,7 +17,7 @@ TOOLS = ("torch_nn_tune", "torch_refine_draws", "torch_replay", "torch_bag2islog
          "torch_soak", "torch_capacity_sensitivity", "torch_bench_full", "torch_stream_probe",
          "torch_slope_probe", "torch_profile_stages", "torch_multiproc_product",
          "torch_scaling_bench", "torch_scaling_projection", "torch_scaling_multisession",
-         "torch_eig_tune")
+         "torch_eig_tune", "torch_first_use")
 FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
     ROOT / "tools" / f"{name}.py" for name in TOOLS]
@@ -56,7 +56,7 @@ def test_guard_sees_the_package():
                 "parallel/dist_ba.py", "parallel/ba_builder.py", "parallel/dist_pgo.py",
                 "parallel/dist_backend.py", "parallel/live_demo.py", "utils/device.py",
                 "pipeline/frame_graph.py", "ops/eigsym.py", "utils/nvcc.py",
-                "utils/graph_cond.py"):
+                "utils/graph_cond.py", "ops/svd3.py", "utils/tree.py"):
         assert f"intensity_slam_tpu_torch/{mod}" in names
 
 

@@ -51,8 +51,14 @@ on the same probe scan, unorganized, as `geometric_slam.run_sequence` runs
 it: through `geometric_slam.GeoStepGraph`, one replayed graph, over the
 state that `geo_slam_step` leaves after the seven frames before it, set
 back before every call; its FLOPs are one eager `geo_slam_step`'s count.  On
-the CPU both graphed rows are left out (a graph owner runs the eager
-segments there).
+the CPU the graphed rows are left out (a graph owner runs the eager
+segments there).  Two more, `FULL keyframe (graphs)` and `FULL keyframe,
+accepted loop (graphs)`, replay keyframes of the 38-frame out-and-back
+(SlamConfig() widths, 64x1024, the recency exclusions shortened) through
+`FrameGraph`, the keyframe branch inside the graph: the last keyframe that
+verified nothing before the first accepted loop, and that loop's frame
+(ICP verification, PCM, the dense 6144-dim PGO, the map rebuild), each set
+back to the state before it before every call (`keyframe_graph_rows`).
 
 On `--device cpu` every device column reads "not measured", and so does
 the bound on a card that the peaks table lacks.  Prints the JAX tool's
@@ -64,6 +70,7 @@ rows as JSON.  `--small` (small_test_config) rehearses the tool on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -145,12 +152,12 @@ def device_trace(fn, traces: int = 3, reset=None) -> tuple[float, int, str, floa
     from a `torch.profiler` trace; a trace that comes back empty is taken
     again, up to `traces` times.  `reset`, when given, runs before each
     call, outside the trace."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     for _ in range(traces):
         if reset is not None:
             reset()
             torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with devices.profile([ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type.name == "CUDA"]
@@ -247,6 +254,63 @@ def graph_row(prof: Profiler, cfg, fstate, x0, i0, u, flops) -> frame_graph.Fram
     return fg
 
 
+def out_and_back_config(base):
+    """`base` with the recency exclusions shortened for the 38-frame
+    out-and-back (tests/test_loop_closure.py:41-49)."""
+    return base.replace(loop=dataclasses.replace(
+        base.loop, sc_num_exclude_recent=4, min_loop_search_gap=4))
+
+
+def keyframe_graph_rows(prof: Profiler, cfg) -> frame_graph.FrameGraph:
+    """The `FULL keyframe (graphs)` and `FULL keyframe, accepted loop
+    (graphs)` rows: keyframes of the out-and-back (`cfg`'s widths, the
+    recency exclusions shortened) through a `FrameGraph`, the whole
+    keyframe branch replayed inside the frame's graph.  The eager
+    `fused_step` runs the sequence up to its first accepted loop; the
+    accepted-loop row replays that frame (ICP verification, PCM, the loop
+    edge, the dense PGO, the map rebuild), the keyframe row the last
+    keyframe before it that verified nothing, each from the state before
+    it, set back before every call.  The FLOPs are those of the same frame
+    through the eager `fused_step`."""
+    dev = prof.dev
+    xyz, inten = synthetic.render_sequence(
+        synthetic.out_and_back_trajectory(device=dev), synthetic.corridor_world(device=dev),
+        cfg.sensor)
+    mask = projection.detection_mask(cfg.sensor, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    u = ground.draw_uniforms(gen, cfg.ground, dev)
+    st = fused.init_state(cfg, device=dev)
+    before, plain, loop = [], None, None
+    for k in range(xyz.shape[0]):
+        before.append(frame_graph.clone_state(st))
+        st, info = fused.fused_step(st, xyz[k], inten[k], 0.1 * k, mask, cfg, ground_u=u)
+        if bool(info.loop_found):
+            loop = k
+            break
+        if bool(info.is_keyframe) and not bool(info.loop_found) and \
+                not torch.isfinite(info.icp_fitness):
+            plain = k
+    if loop is None or plain is None:
+        raise RuntimeError(f"the out-and-back gave no accepted loop ({loop}) or no plain "
+                           f"keyframe before it ({plain})")
+    fg = None
+    for name, k in (("FULL keyframe (graphs)", plain),
+                    ("FULL keyframe, accepted loop (graphs)", loop)):
+        fstate = before[k]
+        with FlopCounterMode(display=False) as fc:
+            fused.fused_step(fstate, xyz[k], inten[k], 0.1 * k, mask, cfg, ground_u=u)
+        fg = frame_graph.FrameGraph(cfg, dev, state=fstate)
+        prof.stage(name, lambda fs, x, i, _fg=fg, _k=k: _fg.step(x, i, 0.1 * _k, ground_u=u),
+                   fstate, xyz[k], inten[k], reset=lambda _fg=fg, _s=fstate: _fg.adopt(_s),
+                   flops=fc.get_total_flops())
+        warm = fg.warmup_s or "none (an earlier owner's of this configuration served)"
+        print(f"  (frame {k} of the out-and-back: keyframe {fg.last_flags['keyframe']}, "
+              f"verified {fg.last_flags['verify']}, loop accepted "
+              f"{fg.last_flags['accept']}; warm-up s {warm}, capture s {fg.capture_s})")
+    return fg
+
+
 def geo_graph_row(prof: Profiler, cfg, xyz, inten, x0, i0):
     """The `geo_slam_step (graphs)` row: the probe scan through a
     `GeoStepGraph` set back before every call to the state that eager
@@ -273,6 +337,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--out", type=str, default=OUT)
     args = ap.parse_args(argv)
+    devices.detach_profiler_after_traces()       # the traces must not slow the timed calls
     dev = devices.resolve(args.device)
     cfg = config.small_test_config() if args.small else config.os0_64_config()
     poses = synthetic.circuit_trajectory(WARM_FRAMES, speed=0.4, device=dev)
@@ -351,6 +416,8 @@ def main(argv=None) -> int:
         eager = next(r for r in prof.rows if r["stage"] == "fused_step (non-keyframe)")
         fg = graph_row(prof, cfg, fstate, x0, i0, u, eager["flops"])
         gg = geo_graph_row(prof, cfg, xyz[:-1], inten[:-1], x0, i0)
+        keyframe_graph_rows(prof, out_and_back_config(
+            config.small_test_config() if args.small else config.SlamConfig()))
         graph = {"capture_s": fg.capture_s, "replays": dict(fg.replays),
                  "geo_capture_s": gg.capture_s, "geo_replays": dict(gg.replays)}
         print(f"  (graphs: capture s {fg.capture_s}, replays {dict(fg.replays)}; A-LOAM "

@@ -107,8 +107,8 @@ def run_batch(cfg, xyz, inten, first: int, B: int, warm: int, dev, probe: bool,
            "ms_per_step": 1e3 * dt / (F - warm),
            "skips_last_step": sum(h.skip for h in out.host)}
     if probe:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        from torch.profiler import ProfilerActivity
+        with devices.profile([ProfilerActivity.CUDA]) as prof:
             devices.synchronize(dev)
             t0 = time.perf_counter()
             step(F)
@@ -216,6 +216,7 @@ def main(argv=None) -> int:
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--batch", type=int, default=8)
     args = ap.parse_args(argv)
+    devices.detach_profiler_after_traces()       # the traces must not slow the timed calls
     if args.worker is not None:
         worker(args.worker, args.procs, args.coordinator, args.out, args.timeout,
                args.device, args.small, args.batch)
@@ -229,8 +230,8 @@ def main(argv=None) -> int:
     xyz, inten = streams(cfg, frames + (2 if on_card else 0), dev)
     if on_card:
         # the profiler's first trace in a process carries its start-up
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]):
+        from torch.profiler import ProfilerActivity
+        with devices.profile([ProfilerActivity.CUDA]):
             torch.zeros(1, device=dev).add_(1)
             devices.synchronize(dev)
     res = {"frames_per_stream": frames, "step": "BatchedStepGraph (CUDA graphs)",
