@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the result lines are printed):
 1. build: compile the CUDA kernels from the checkout, one nvcc for each
    source started together (`csrc/nn.cu`, the nearest-neighbour kernels;
    `csrc/eigsym.cu`, the Jacobi eigensolver; `csrc/svd3.cu`, the ICP's 3x3
-   SVD; `csrc/graph_cond.cu`, the conditional nodes' handle kernel), and
+   SVD; `csrc/graph_cond.cu`, the conditional nodes' handle kernel;
+   `csrc/stamp.cu`, the span recorder's stamp kernel), and
    print nvcc's register/shared-memory report and the build time;
 2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
    their plain PyTorch versions at the ICP shapes (P = 2048 sources,
@@ -90,6 +91,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    handle kernel (`set_handle_kernel`, `csrc/graph_cond.cu`) held against
    the plain choice of the body (run, skipped, run) and timed as one node
    of a chain of 100 skipped ones beside the host read it replaces.  Then
+   the stamp kernel (`stamp_kernel`, `utils/spans.py`, also `--phase
+   stamp`) in a buffer laid out as the frame graph's read (6 flags, then
+   the 22 stamp slots) against its plain version: the slots from
+   `clear_from` zeroed, the others and the flags kept, the stamp inside the
+   host's bracket around its launch once mapped through a fresh
+   calibration, within the calibration's error; `%globaltimer`'s step (the
+   gcd of 64 back-to-back stamps' differences) and a stamp node's time in
+   a chain of 100 captured ones.  Then
    the slice at full width through `SlamSystem` (a timed run, a run with
    host syncs counted and solver iterations read after every frame, and
    the first 6 frames again with three non-keyframe frames traced by
@@ -310,7 +319,7 @@ from intensity_slam_tpu_torch.pipeline import (frame_graph, fused, geometric_sla
 from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
 from intensity_slam_tpu_torch.utils import device as devices
-from intensity_slam_tpu_torch.utils import graph_cond, se3
+from intensity_slam_tpu_torch.utils import graph_cond, se3, spans
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = devices.H100_SXM
@@ -786,7 +795,7 @@ def svd_kernel_phase(dev, cfg) -> dict:
 # the hand kernels' wrappers by the key of their record (`KERNELS`)
 WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
             "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "svd3": svd3.svd3,
-            "cond": graph_cond.set_handle}
+            "cond": graph_cond.set_handle, "stamp": spans.stamp}
 
 
 def reset_launches() -> None:
@@ -2913,6 +2922,82 @@ def cond_phase(dev) -> dict:
     return rec
 
 
+STAMP_RUN = 64           # back-to-back stamps the timer's step is read from
+STAMP_CHAIN = 100        # stamp nodes in the graph that times one node
+# (slot, clear_from) cases: a frame's start, `front`'s start (it clears the
+# frame's other slots), a region's end, a clear past the buffer's end
+STAMP_CASES = ((0, None), (spans.FRONT_SLOT, spans.FRONT_SLOT), (spans.SLOTS - 1, None),
+               (5, 3), (spans.FRONT_SLOT + 1, spans.SLOTS))
+
+
+def stamp_phase(dev) -> dict:
+    """The stamp kernel against its plain version in a buffer laid out as
+    the frame graph's read (see the module docstring)."""
+    flags = len(frame_graph.FrameGraph.FLAGS)
+    read = torch.empty(flags + spans.SLOTS, dtype=torch.int64, device=dev)
+    buf = read[flags:]
+    pattern = torch.arange(1, flags + spans.SLOTS + 1, dtype=torch.int64, device=dev)
+    spans.stamp(buf, 0)                                   # the library's first call
+    cal = spans.recorder.calibrate(dev)
+    rows, worst, outside = [], 0, []
+    for slot, clear in STAMP_CASES:
+        read.copy_(pattern)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter_ns()
+        spans.stamp(buf, slot, clear)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter_ns()
+        got = read.cpu()
+        plain = pattern.cpu()
+        plain_buf = plain[flags:]
+        if clear is not None:
+            plain_buf[clear:] = 0
+        keep = torch.ones(flags + spans.SLOTS, dtype=torch.bool)
+        keep[flags + slot] = False
+        worst = max(worst, int((got[keep] - plain[keep]).abs().max()))
+        at = int(got[flags + slot]) + cal["offset_ns"]
+        lo, hi = t0 - cal["error_ns"], t1 + cal["error_ns"]
+        if not lo <= at <= hi:
+            outside.append((slot, clear, at - t0, t1 - t0))
+        rows.append(dict(slot=slot, clear_from=clear, host_bracket_us=(t1 - t0) / 1e3,
+                         stamp_from_bracket_start_us=(at - t0) / 1e3))
+    run = torch.zeros(STAMP_RUN, dtype=torch.int64, device=dev)
+    for i in range(STAMP_RUN):
+        spans.stamp(run, i)
+    stamps = run.tolist()
+    step = 0
+    for a, b in zip(stamps, stamps[1:]):
+        step = math.gcd(step, b - a)
+    rising = all(b > a for a, b in zip(stamps, stamps[1:]))
+    pool = torch.cuda.graph_pool_handle()
+    graphs = {}
+    for name, count in (("chain", STAMP_CHAIN), ("one", 1)):
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name], pool=pool):
+            for i in range(count):
+                spans.stamp(buf, i % spans.SLOTS)
+    node_ms = ((time_cuda(graphs["chain"].replay, reps=30)
+                - time_cuda(graphs["one"].replay, reps=30)) / (STAMP_CHAIN - 1))
+    host = torch.zeros(spans.SLOTS, dtype=torch.int64)
+    plain_ms = time_cuda(lambda: spans.stamp(host, 0))
+    print(f"stamp: stamp_kernel in the frame graph's read ({flags} flags, {spans.SLOTS} "
+          f"slots) held against the plain version over (slot, clear_from) "
+          f"{[c for c in STAMP_CASES]}: max |error| of the other slots and the flags "
+          f"{worst}; calibration {cal}; each stamp's place in its host bracket {rows}; "
+          f"%globaltimer step {step} ns (gcd of {STAMP_RUN} back-to-back stamps' "
+          f"differences, rising {rising}, {(stamps[-1] - stamps[0]) / (STAMP_RUN - 1):.0f} ns "
+          f"apart on average); one stamp node in a chain of {STAMP_CHAIN} {node_ms:.6f} ms, "
+          f"the plain version (perf_counter_ns into a host tensor) {plain_ms:.6f} ms; "
+          f"{devices.describe('cuda')}", flush=True)
+    check(worst == 0, f"stamp: the kernel changed other slots than its plain version: {worst}")
+    check(not outside, f"stamp: stamps outside their host bracket and the calibration's "
+          f"error {cal['error_ns']} ns: {outside}")
+    check(rising and step > 0, f"stamp: back-to-back stamps {stamps[:8]}... not rising")
+    return dict(max_abs_err=worst, ms=node_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=8e3 / PEAK_BYTES_PER_S, bound_by="bytes", timer_step_ns=step,
+                calibration=cal, cases=rows)
+
+
 def graph_phase(dev) -> dict:
     """Every frame as one replayed CUDA graph (`FrameGraph`, through
     `SlamSystem`: keyframes, the verification and the accepted loop inside
@@ -2921,6 +3006,7 @@ def graph_phase(dev) -> dict:
     t_phase = time.perf_counter()
     kern = eig_kernel_phase(dev)
     kern["cond"] = cond_phase(dev)
+    kern["stamp"] = stamp_phase(dev)
     cfg = slice_config(config.SlamConfig())
     traj = loop_trajectory()
     xyz, inten = synthetic.render_sequence(
@@ -3131,6 +3217,7 @@ TRACE_KERNELS = {
     "nn": lambda n: "nn_packed_kernel" in n,
     "pack": lambda n: "pack_kernel" in n and "nn_packed" not in n,
     "cond": lambda n: "set_handle_kernel" in n,
+    "stamp": lambda n: "stamp_kernel" in n,
 }
 
 
@@ -3157,10 +3244,10 @@ def traced_launches(run: dict, frames, what: str) -> None:
 
 
 def frame_graph_read_line() -> int:
-    """The line of `FrameGraph.step`'s flags read, as the sync counter keys
-    it."""
+    """The line of the frame's flags read (`FrameGraph._dispatch`, under
+    `step`), as the sync counter keys it."""
     import inspect
-    lines, first = inspect.getsourcelines(frame_graph.FrameGraph.step)
+    lines, first = inspect.getsourcelines(frame_graph.FrameGraph._dispatch)
     return first + next(i for i, ln in enumerate(lines) if ".tolist()" in ln)
 
 
@@ -3177,6 +3264,9 @@ COND_SOURCE = ("intensity_slam_tpu_torch/csrc/graph_cond.cu",
                "pipeline/mapping.py:355, :360, pipeline/fused.py:193, :208, "
                "pipeline/loop.py:330, :608, :640, and of the lax.fori_loop at "
                "pipeline/posegraph.py:725")
+STAMP_SOURCE = ("intensity_slam_tpu_torch/csrc/stamp.cu",
+                "no Pallas source and no kernel replaced: the span recorder's device "
+                "clock, which XLA's profiler reads on the TPU itself")
 # (record key, kernel name, source, what it replaces)
 KERNELS = (
     ("nn", "nn_packed_kernel", *NN_SOURCE),
@@ -3185,6 +3275,7 @@ KERNELS = (
     ("eigvalsh", "jacobi_kernel<6, values> (eigsym.eigvalsh)", *EIG_SOURCE),
     ("svd3", "svd3_kernel (svd3.svd3)", *SVD_SOURCE),
     ("cond", "set_handle_kernel (graph_cond.when)", *COND_SOURCE),
+    ("stamp", "stamp_kernel (spans.stamp)", *STAMP_SOURCE),
 )
 
 
@@ -3225,9 +3316,10 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(mod.build, verbose=True)
                   for name, mod in (("nn", pallas_nn), ("eigsym", eigsym),
-                                    ("svd3", svd3), ("graph_cond", graph_cond))}
+                                    ("svd3", svd3), ("graph_cond", graph_cond),
+                                  ("stamp", spans))}
         reports = {name: b.result() for name, b in builds.items()}
-    print(f"kernels build (nn.cu, eigsym.cu, svd3.cu and graph_cond.cu in parallel): "
+    print(f"kernels build (nn.cu, eigsym.cu, svd3.cu, graph_cond.cu and stamp.cu in parallel): "
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -3249,6 +3341,7 @@ def main() -> int:
                   "eig": lambda: eig_kernel_phase(dev),
                   "svd": lambda: svd_kernel_phase(dev, cfg),
                   "cond": lambda: cond_phase(dev),
+                  "stamp": lambda: stamp_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),
                   "checkpoint": lambda: checkpoint_phase(dev),
                   "geoslam": lambda: geoslam_phase(dev),

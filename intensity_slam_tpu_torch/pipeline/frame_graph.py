@@ -43,7 +43,10 @@ here, the fallback and the whole keyframe branch with the conds inside it.
 then the flags (skip, has_prev, is_keyframe, a candidate found, the loop
 accepted, the store compacted) come to the host, the frame's one read: it
 decides nothing but the kernel counts and `FrameInfo`'s unpacking, as the
-counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.
+counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.  The read also
+brings the device stamps of the frame's regions (`utils.spans`: `frame`,
+`front`, `back`, `mapping` inside it, `log`, and each If region above),
+written into the same buffer.
 `BatchedStepGraph`'s step is one graph of `front`, the fallback region when
 any session's flags say `skip & has_prev` (solved on all B and kept where
 they say so, `slam._fallback_batched`) and `back`, then the (3, B) flags
@@ -84,6 +87,12 @@ read.
   wrappers in `KERNEL_WRAPPERS` are taken back after a capture, and each
   replay advances them by what the capture recorded outside the regions,
   and inside each region that the flags read after it say ran.
+- **Spans.**  `FrameGraph.step` records its host phases (`graph.inputs`,
+  `graph.launch`, `graph.read`, `graph.unpack`) and its device regions
+  into `utils.spans.recorder`, in the frame that `begin_frame` opened (the
+  streaming runner opens it before the upload, and stamps its device start
+  with `start_frame` right before the upload's copy to the card);
+  `BatchedStepGraph` and `GeoStepGraph` are not stamped.
 - **On the CPU** the same segments run eagerly in the same order with the
   same in-place copies, each region's test read on the host.  On the card
   nothing falls back: a capture or a replay that fails raises.
@@ -99,7 +108,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import projection
-from ..utils import graph_cond
+from ..utils import graph_cond, spans
 from ..utils.graph_cond import KERNEL_WRAPPERS
 from ..utils.tree import clone_state, donate, generators, leaves, map_leaves
 from ..utils.se3 import Pose
@@ -241,6 +250,9 @@ class FrameGraph:
     docstring).  `state` is the `FusedState` of buffers, read at any time;
     `step` runs a frame and returns its `FrameInfo`."""
 
+    # the flags of the frame's one host read, before its device stamps
+    FLAGS = ("skip", "has_prev", "is_keyframe", "sc_found", "loop_found", "compacted")
+
     # the frame graph's conditional regions that hold hand kernels, counted
     # where the flags read after a replay says they ran
     REGIONS = ("fallback", "keyframe", "compact", "verify", "accept", "rebuild")
@@ -269,6 +281,11 @@ class FrameGraph:
         self.segments = Segments(self.device)
         self._layout: tuple | None = None      # pack_info's
         self._raw: torch.Tensor | None = None  # the frame's packed FrameInfo
+        # the frame's host read: the flags, then the regions' device stamps
+        self._read = torch.zeros(len(self.FLAGS) + spans.SLOTS, dtype=torch.int64,
+                                 device=self.device)
+        self._stamps = self._read[len(self.FLAGS):]
+        self._started = False       # the open frame's start is stamped
         self._fallback_ran = False
         self.capture_s = self.segments.capture_s        # by graph
         # by region, before the capture (empty where an earlier owner's
@@ -278,6 +295,28 @@ class FrameGraph:
         self.last_output: slam.SlamOutput | None = None   # the last frame's
         # `slam.back` output (a graph's tensors: valid until the next frame)
         self.last_flags: dict[str, bool] = {}   # the last frame's flags read
+        self.calibrate()
+
+    # ---- spans -------------------------------------------------------------
+    def begin_frame(self, index: int | None = None) -> bool:
+        """Open this thread's frame in the span recorder (`index`: its log
+        index), unless a frame is open; returns whether it opened one."""
+        if not spans.recorder.begin_frame(index):
+            return False
+        self._started = False
+        return True
+
+    def start_frame(self) -> None:
+        """Stamp the open frame's device start, once a frame: enqueued
+        right before its first device work."""
+        if not self._started:
+            spans.stamp(self._stamps, 0)
+            self._started = True
+
+    def calibrate(self) -> dict | None:
+        """Map this device's stamps onto the host clock anew
+        (`spans.Recorder.calibrate`; nothing on the CPU)."""
+        return spans.recorder.calibrate(self.device)
 
     # ---- state -----------------------------------------------------------
     def adopt(self, state: fused.FusedState) -> None:
@@ -337,22 +376,29 @@ class FrameGraph:
 
     def _frame(self) -> tuple[slam.FrontOutput, slam.SlamOutput, torch.Tensor]:
         """The whole frame: `front`, the fallback region, `back`, the
-        keyframe region, the log append; and the flags the host reads."""
-        fr = self._front()
-        skip, has_prev, is_kf = fr.flags.unbind()
-        with graph_cond.when(skip & has_prev, "fallback") as taken:
-            if taken:
-                self._fallback(fr)
-        out = self._back(fr)
-        iq, era_qual = fused.frame_quality(self.state.log, out, self.cfg)
-        donate(self._bout, self._no_kf)
-        with graph_cond.when(is_kf, "keyframe") as taken:
-            if taken:
-                self._keyframe(fr, out, era_qual)
-        self._log(out, iq)
+        keyframe region, the log append, each between its device stamps;
+        and the buffer the host reads, the flags and the stamps."""
+        with spans.recorder.stamping(self._stamps):
+            with spans.region("front"):
+                fr = self._front()
+            skip, has_prev, is_kf = fr.flags.unbind()
+            with graph_cond.when(skip & has_prev, "fallback") as taken:
+                if taken:
+                    self._fallback(fr)
+            with spans.region("back"):
+                out = self._back(fr)
+            iq, era_qual = fused.frame_quality(self.state.log, out, self.cfg)
+            donate(self._bout, self._no_kf)
+            with graph_cond.when(is_kf, "keyframe") as taken:
+                if taken:
+                    self._keyframe(fr, out, era_qual)
+            with spans.region("log"):
+                self._log(out, iq)
+            spans.mark("frame", True)
         b = self._bout
         flags = torch.stack([skip, has_prev, is_kf, b.sc_found, b.loop_found, b.compacted])
-        return fr, out, flags
+        self._read[:len(self.FLAGS)].copy_(flags)
+        return fr, out, self._read
 
     def _warm_up(self, fr: slam.FrontOutput, out: slam.SlamOutput) -> None:
         """Run once eagerly what the capture records and no frame has run:
@@ -377,31 +423,46 @@ class FrameGraph:
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamp,
              ground_u: torch.Tensor | None = None) -> fused.FrameInfo:
         """Run one frame; returns its `FrameInfo` (device scalars, none read)."""
-        st = self.state
-        self._xyz.copy_(xyz)
-        self._inten.copy_(inten)
-        if isinstance(timestamp, torch.Tensor):
-            self._ts.copy_(timestamp)
-        else:
-            self._ts.fill_(timestamp)
-        if ground_u is None:
-            torch.rand(self._ground_u.shape, generator=st.slam.gen, out=self._ground_u)
-        else:
-            self._ground_u.copy_(ground_u)
+        opened = self.begin_frame()
+        try:
+            return self._dispatch(xyz, inten, timestamp, ground_u)
+        finally:
+            if opened:
+                spans.recorder.end_frame()
+
+    def _dispatch(self, xyz, inten, timestamp, ground_u) -> fused.FrameInfo:
+        rec = spans.recorder
+        with rec.span("graph.inputs"):
+            self.start_frame()
+            self._xyz.copy_(xyz)
+            self._inten.copy_(inten)
+            if isinstance(timestamp, torch.Tensor):
+                self._ts.copy_(timestamp)
+            else:
+                self._ts.fill_(timestamp)
+            if ground_u is None:
+                torch.rand(self._ground_u.shape, generator=self.state.slam.gen,
+                           out=self._ground_u)
+            else:
+                self._ground_u.copy_(ground_u)
 
         replayed = "frame" in self.segments.graphs
-        fr, out, flags = self.segments.replay("frame") if replayed else self._frame()
-        # the frame's one host read
-        skip, has_prev, is_kf, found, accept, compacted = flags.tolist()
-        ran = {"fallback": skip and has_prev, "keyframe": is_kf,
-               "compact": compacted, "verify": found, "accept": accept,
-               "rebuild": accept and self.cfg.mapping.rebuild_on_loop}
-        if replayed:
-            self.segments.count_regions("frame", ran)
-        self.last_flags = ran
-        out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
-        self.last_output = out
-        info = unpack_info(self._raw.clone(), self._layout)
+        with rec.span("graph.launch"):
+            fr, out, read = self.segments.replay("frame") if replayed else self._frame()
+        with rec.span("graph.read"):
+            read = read.tolist()        # the frame's one host read
+        with rec.span("graph.unpack"):
+            skip, has_prev, is_kf, found, accept, compacted = map(bool, read[:len(self.FLAGS)])
+            ran = {"fallback": skip and has_prev, "keyframe": is_kf,
+                   "compact": compacted, "verify": found, "accept": accept,
+                   "rebuild": accept and self.cfg.mapping.rebuild_on_loop}
+            if replayed:
+                self.segments.count_regions("frame", ran)
+            self.last_flags = ran
+            out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
+            self.last_output = out
+            info = unpack_info(self._raw.clone(), self._layout)
+        rec.device(read[len(self.FLAGS):], self.device)
         if not replayed and self.segments.on_card:
             # every part of the frame has run eagerly now, or runs here once
             # a process, device, configuration and thread (`warmups`)
@@ -410,6 +471,7 @@ class FrameGraph:
                 self._warm_up(fr, out)
                 warmups[key] = self.warmup_s
             self.segments.capture("frame", self._frame, self.REGIONS)
+            self.calibrate()
         return info
 
 

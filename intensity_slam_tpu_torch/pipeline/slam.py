@@ -47,7 +47,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import curvature, ground, projection
-from ..utils import se3
+from ..utils import se3, spans
 from ..utils.se3 import Pose
 from . import geometric, mapping, odometry
 
@@ -240,14 +240,16 @@ def back(state: SlamState, fr: FrontOutput, fallback_delta: Pose,
     # scan-to-map (C14); corners = less-sharp cloud (the reference feeds its
     # corner ikd-tree with the less-sharp features, `:478-479`); surf =
     # less-flat cloud so wall planes observe x/y/yaw (see mapping_step)
-    map_state, map_out = mapping.mapping_step(
-        state.mapping,
-        xyz, gres.ground_mask,
-        fc.less_sharp, fc.less_sharp_mask,
-        merged, cfg,
-        features=odo_out.features,
-        surf_pts=fc.less_flat, surf_mask=fc.less_flat_mask,
-    )
+    # (the `mapping` device region where a frame graph stamps, `utils.spans`)
+    with spans.region("mapping"):
+        map_state, map_out = mapping.mapping_step(
+            state.mapping,
+            xyz, gres.ground_mask,
+            fc.less_sharp, fc.less_sharp_mask,
+            merged, cfg,
+            features=odo_out.features,
+            surf_pts=fc.less_flat, surf_mask=fc.less_flat_mask,
+        )
 
     # velocity EMA for the next frame's undistortion prediction
     vel = Pose(

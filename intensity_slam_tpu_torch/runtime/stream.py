@@ -30,6 +30,14 @@ frame after the capture, keyframes included: the flags read).
   into pinned host memory plus an event; the writer waits on that event
   and nothing else, so the device-to-host transfer stays off the dispatch
   thread.
+- Each frame's host phases on the dispatch thread (`stream.upload`,
+  `stream.upload_wait`, `stream.decode`, the step's `graph.*`,
+  `stream.spill`, `stream.pose`, and `stream.caller`, the time inside the
+  caller's `on_frame`) and its device regions go into
+  `utils.spans.recorder`, one run of frames a `run`; the frame opens before
+  its upload (`FrameGraph.begin_frame`), its device start is stamped right
+  before the copy to the card (`FrameGraph.start_frame`), and it closes
+  after `on_frame`.
 
 With `wire_compress` a frame ships in the sensor's native form: the native
 IO thread packs it into (N+1, 2) uint16 words (row 0: run-relative
@@ -50,6 +58,7 @@ import torch
 
 from ..config import SlamConfig
 from ..pipeline import frame_graph, fused
+from ..utils import spans
 from .channel import Channel
 from .scanlog import ScanLog
 from .spill import LogSpiller, host_array
@@ -99,28 +108,41 @@ class _UploadRing:
     """`depth` pinned host slots for the per-frame upload.  Slot k % depth
     is refilled only after the event recorded behind its last copy has
     completed, so a frame is never overwritten while its copy is in
-    flight.  On the CPU the (owned) host buffer is used as it is."""
+    flight.  On the CPU the (owned) host buffer is used as it is.  Each
+    upload opens the frame's spans (`graph.begin_frame`) and stamps the
+    frame's device start right before the copy to the card
+    (`graph.start_frame`), after the host has filled the pinned slot."""
 
-    def __init__(self, depth: int, device: torch.device):
+    def __init__(self, depth: int, device: torch.device,
+                 graph: frame_graph.FrameGraph):
         self.device = device
+        self.graph = graph
         self.depth = max(1, depth)
         self.slots: list[torch.Tensor | None] = [None] * self.depth
         self.done: list[torch.cuda.Event | None] = [None] * self.depth
         self.k = 0
         self.waits = 0          # refills that found their slot's copy in flight
 
-    def __call__(self, buf: np.ndarray) -> torch.Tensor:
+    def __call__(self, buf: np.ndarray, index: int | None = None) -> torch.Tensor:
+        self.graph.begin_frame(index)
+        with spans.recorder.span("stream.upload"):
+            return self._upload(buf)
+
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(buf.view(np.int16) if buf.dtype == np.uint16 else buf)
         if self.device.type != "cuda":
+            self.graph.start_frame()
             return host
         s = self.k % self.depth
         self.k += 1
         if self.done[s] is not None and not self.done[s].query():
             self.waits += 1
-            self.done[s].synchronize()
+            with spans.recorder.span("stream.upload_wait"):
+                self.done[s].synchronize()
         if self.slots[s] is None or self.slots[s].shape != host.shape:
             self.slots[s] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
         self.slots[s].copy_(host)
+        self.graph.start_frame()
         dev = self.slots[s].to(self.device, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
@@ -169,10 +191,12 @@ class StreamingRunner:
         self.graph.adopt(fused.init_state(self.cfg, device=self.device))
         self._spiller = LogSpiller(self.cfg)
         self.num_frames = 0
+        self.graph.calibrate()
 
     def _step(self, buf: torch.Tensor, ground_u) -> fused.FrameInfo:
         if self._wire:
-            xyz, inten, ts = wire_decode(buf, self._dirs)
+            with spans.recorder.span("stream.decode"):
+                xyz, inten, ts = wire_decode(buf, self._dirs)
         else:
             xyz, inten, ts = buf[1:, :3], buf[1:, 3], buf[0, 0]
         return self.graph.step(xyz, inten, ts, ground_u=ground_u)
@@ -257,17 +281,29 @@ class StreamingRunner:
             self._slots.clear()
 
     def _drive(self, frames, ground_u, on_frame) -> None:
-        """The dispatch loop over (log index, absolute time, device buffer)."""
+        """The dispatch loop over (log index, absolute time, device buffer),
+        one run of the span recorder; each frame's spans close after its
+        `on_frame` (a frame the upload opened was opened in `frames`)."""
+        rec = spans.recorder
+        rec.begin_run()
         writer_th = self._open_writer()
         try:
             for j, (idx, abs_ts, buf) in enumerate(frames):
-                info = self._step(buf, _ground_u_at(ground_u, j, idx, self.device))
-                self.num_frames += 1
-                self._spiller.maybe_spill(self.state, self.num_frames)
-                self._record_pose(idx, abs_ts, info)
-                if on_frame is not None:
-                    on_frame(idx, info)
+                try:
+                    self.graph.begin_frame(idx)
+                    info = self._step(buf, _ground_u_at(ground_u, j, idx, self.device))
+                    self.num_frames += 1
+                    with rec.span("stream.spill"):
+                        self._spiller.maybe_spill(self.state, self.num_frames)
+                    with rec.span("stream.pose"):
+                        self._record_pose(idx, abs_ts, info)
+                    if on_frame is not None:
+                        with rec.span("stream.caller"):
+                            on_frame(idx, info)
+                finally:
+                    rec.end_frame()
         finally:
+            rec.end_frame()
             self._close_writer(writer_th)
 
     def _ensure_dirs(self, log: ScanLog) -> None:
@@ -288,14 +324,14 @@ class StreamingRunner:
         """Stream frames [start, end) of `log` through the fused step.
         `ground_u` (tests): the ground RANSAC's draws per frame, an (F, K, 3)
         array over this run's frames or a callable of the log index."""
-        upload = _UploadRing(depth, self.device)
+        upload = _UploadRing(depth, self.device, self.graph)
         if self._wire:
             self._ensure_dirs(log)
             # the 65k-point norm/quantize/pack per frame runs on the NATIVE
             # IO thread (WirePrefetcher); the dispatch thread does one copy
             # into a pinned slot and one upload.  Timestamps on the device
             # are run-relative (epoch-safe).
-            frames = ((wf.index, wf.timestamp, upload(wf.packed))
+            frames = ((wf.index, wf.timestamp, upload(wf.packed, wf.index))
                       for wf in log.stream_wire(start, end, depth, _WIRE_MAX_RANGE))
         else:
             def float_frames():
@@ -309,7 +345,7 @@ class StreamingRunner:
                     buf[0] = (fr.timestamp - base, 0.0, 0.0, 0.0)
                     buf[1:, :3] = fr.xyz
                     buf[1:, 3] = fr.intensity
-                    yield fr.index, fr.timestamp, upload(buf)
+                    yield fr.index, fr.timestamp, upload(buf, fr.index)
 
             frames = float_frames()
         self._drive(frames, ground_u, on_frame)

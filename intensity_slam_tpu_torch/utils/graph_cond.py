@@ -39,6 +39,12 @@ their predicates say, each timed (its own seconds, those of the regions
 nested in it apart): the warm-up of a region that no step has taken before
 its capture (`pipeline.frame_graph.FrameGraph`).
 
+**Stamps.**  A block that runs, on a host read or as a node's body, starts
+and ends with the device stamps of its region (`utils.spans.mark`), the
+first and last nodes of the body: a no-op unless a frame graph is stamping
+and the region is one of `spans.DEVICE` (the solvers' iterations, the PCM
+vote's steps and the eviction are not).
+
 **Kernel counts.**  A capture records the hand kernels' launches without
 making them, and a graph owner adds them back on every replay
 (`pipeline.frame_graph.Segments`).  Inside a region they happen only on the
@@ -66,7 +72,7 @@ import weakref
 import torch
 
 from ..ops import eigsym, pallas_nn, svd3
-from . import nvcc
+from . import nvcc, spans
 from .tree import clone_state, donate
 
 SOURCE = os.path.join(nvcc.CSRC_DIR, "graph_cond.cu")
@@ -123,9 +129,10 @@ def set_handle(pred: torch.Tensor, body_stream: torch.cuda.Stream) -> None:
 
 set_handle.launches = 0
 
-# the hand kernels' wrappers, each with its `launches` count
+# the hand kernels' wrappers, each with its `launches` count (the handle
+# kernel last)
 KERNEL_WRAPPERS = (eigsym.eigh, eigsym.eigvalsh, pallas_nn.pack_targets,
-                   pallas_nn.nearest_neighbor_packed, svd3.svd3, set_handle)
+                   pallas_nn.nearest_neighbor_packed, svd3.svd3, spans.stamp, set_handle)
 
 
 def launch_counts() -> list[int]:
@@ -207,13 +214,18 @@ def when(pred: torch.Tensor, name: str, kernels: bool = True):
         taken = _host_bool(pred)
         if taken:
             ran[name] += 1
+            spans.mark(name, False)
         yield taken
+        if taken:
+            spans.mark(name, True)
         return
     with _body(pred):
         before = launch_counts()
         _open.append([0] * len(before))
+        spans.mark(name, False)
         try:
             yield True
+            spans.mark(name, True)
         finally:
             nested = _open.pop()
         inside = [a - b for a, b in zip(launch_counts(), before)]

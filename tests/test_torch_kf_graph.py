@@ -21,7 +21,7 @@ small_test_config shapes:
     capturability), the solver and the capacity policy in their conditional
     forms; the keyframe, compact, verify, accept and rebuild regions run
     exactly where the flags read after the frame say, and the frame's flags
-    read is its one `tolist`.
+    read (the flags, then the regions' device stamps) is its one `tolist`.
 """
 
 import contextlib
@@ -43,7 +43,7 @@ from intensity_slam_tpu_torch.ops import bow as TB
 from intensity_slam_tpu_torch.ops import projection, solver
 from intensity_slam_tpu_torch.pipeline import frame_graph, fused, mapping
 from intensity_slam_tpu_torch.pipeline import posegraph as TPG
-from intensity_slam_tpu_torch.utils import graph_cond, se3
+from intensity_slam_tpu_torch.utils import graph_cond, se3, spans
 from intensity_slam_tpu_torch.utils.se3 import Pose
 from test_torch_frame_graph import _same_info, _same_state, host_read_guard
 
@@ -277,7 +277,7 @@ def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monke
         graph_cond.ran.clear()
         reads.clear()
         info = fg.step(xyz[k], inten[k], 0.1 * k)
-        assert reads == [(6,)], (k, reads)
+        assert reads == [(len(fg.FLAGS) + spans.SLOTS,)], (k, reads)
         assert _same_info(infos[k], info), k
         flags = fg.last_flags
         taken = {r: graph_cond.ran[r] for r in fg.REGIONS}
