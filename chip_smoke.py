@@ -110,7 +110,9 @@ Phases (any failure exits non-zero before the result lines are printed):
    (which runs eagerly, warms the keyframe regions up and captures the
    graph) replayed, keyframes and the accepted loop included, with exactly
    one host sync (the flags read in `FrameGraph.step`) and one graph
-   replay, and on the traced frames (three non-keyframes, one keyframe) one
+   replay, the PGO solved once an accepted loop at its smallest node
+   bucket (`posegraph.solves`), and on the traced frames (three
+   non-keyframes, one keyframe, the accepted loop) one
    `cudaGraphLaunch` call and at most 8 other launch calls (input copies,
    timestamp fill, draws, the flags read, `FrameInfo` clone), the
    launches the wrappers counted against the kernels in the trace by name,
@@ -3030,22 +3032,25 @@ def graph_phase(dev) -> dict:
     nonkf = [k for k, (_, kf) in enumerate(e1["frames"]) if not kf]
     kf_frames = [k for k in range(n) if k not in nonkf]
     loop_frames = [a["frame"] for a in e1["kfs"] if a["accepted"]]
-    # the frames traced: non-keyframe frames from the third on and the
-    # first keyframe after the capture (the first frame captures the graph)
+    # the frames traced: non-keyframe frames from the third on, the first
+    # keyframe after the capture (the first frame captures the graph) and
+    # the first accepted loop (its PGO bucket's stamps counted)
     probe = [k for k in nonkf if k >= 2][:GRAPH_TRACED]
     kf_probe = [k for k in kf_frames if k >= 2][:1]
     e2, e_its = fused_run_iterations(cfg, xyz, inten, dev, traced=set(probe[:3]))
     lap("eager, traced in part, iterations")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
+    loop.posegraph.solves.clear()
     ga = run_graphs(cfg, xyz, inten, dev)
     launches = read_launches()
+    solves = dict(loop.posegraph.solves)
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     graph_reserved = torch.cuda.memory_reserved(dev) / 2 ** 20
     lap("graph run")
     gs = run_graphs(cfg, xyz, inten, dev, syncs=True, its=True)
     lap("graph syncs and iterations")
-    traced = sorted(probe + kf_probe)
+    traced = sorted(probe + kf_probe + loop_frames[:1])
     gt = run_graphs(cfg, xyz, inten, dev, traced=set(traced), frames=traced[-1] + 1)
     lap("graph traced")
     fixed_solve = solver.solve_pose
@@ -3123,7 +3128,8 @@ def graph_phase(dev) -> dict:
           f"replays {dict(fg.replays)}; If nodes a replay outside the regions "
           f"{fg.segments.kernels['frame'][-1]}, inside them "
           f"{({r: v[-1] for r, v in fg.segments.region_kernels['frame'].items()})}; If "
-          f"nodes counted on each keyframe replay {kf_nodes}; peak device memory eager "
+          f"nodes counted on each keyframe replay {kf_nodes}; PGO solves by bucket "
+          f"{solves}; peak device memory eager "
           f"{eager_peak:.0f} MiB, graph {graph_peak:.0f} MiB (reserved {graph_reserved:.0f} "
           f"MiB)")
     print(f"  frames after capture {after[0]}-{after[-1]} ({len(after)}): host syncs by "
@@ -3149,6 +3155,10 @@ def graph_phase(dev) -> dict:
           f"graph: a kernel of the path was not launched: {launches}")
     check(all(n_nodes > fg.segments.kernels["frame"][-1] for _, n_nodes in kf_nodes),
           f"graph: a keyframe replay counted no If node of its region: {kf_nodes}")
+    # the slice's keyframes fit the PGO's smallest bucket
+    pgo_size = loop.posegraph.buckets(cfg.loop.max_keyframes)[0]
+    check(solves == {pgo_size: len(loop_frames)},
+          f"graph: PGO solves by bucket {solves}, accepted loops {loop_frames}")
     traced_launches(gt, traced, "graph")
 
     # the capacity compaction replayed: the store cut to 8 keyframes, so the

@@ -35,14 +35,17 @@ here, the fallback and the whole keyframe branch with the conds inside it.
         if a candidate is found:  verify   submap, ICP, gates, and the PCM
                                            vote's growth steps (a node each,
                                            on "the last step added a loop")
-          if the loop is accepted:  accept  the loop edge and the dense PGO
+          if the loop is accepted:  accept  the loop edge and the dense PGO,
+            at the bucket of the graph's nodes:  pgo.<size>  (`posegraph.optimize`)
         if the loop is accepted:  rebuild  the maps at the optimized poses
     log       `fused.append_log`: the ring-log append and the packed
               `FrameInfo`, every frame
 
 then the flags (skip, has_prev, is_keyframe, a candidate found, the loop
-accepted, the store compacted) come to the host, the frame's one read: it
-decides nothing but the kernel counts and `FrameInfo`'s unpacking, as the
+accepted, the store compacted, the pose graph's node count, whose bucket
+is the one the PGO ran at) come to the host, the frame's one read: it
+decides nothing but the kernel counts, the PGO's solve count
+(`posegraph.solves`) and `FrameInfo`'s unpacking, as the
 counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.  The read also
 brings the device stamps of the frame's regions (`utils.spans`: `frame`,
 `front`, `back`, `mapping` inside it, `log`, and each If region above),
@@ -112,7 +115,7 @@ from ..utils import graph_cond, spans
 from ..utils.graph_cond import KERNEL_WRAPPERS
 from ..utils.tree import clone_state, donate, generators, leaves, map_leaves
 from ..utils.se3 import Pose
-from . import fused, loop, slam
+from . import fused, loop, posegraph, slam
 
 
 def pack_info(info) -> tuple[torch.Tensor, tuple]:
@@ -250,8 +253,10 @@ class FrameGraph:
     docstring).  `state` is the `FusedState` of buffers, read at any time;
     `step` runs a frame and returns its `FrameInfo`."""
 
-    # the flags of the frame's one host read, before its device stamps
-    FLAGS = ("skip", "has_prev", "is_keyframe", "sc_found", "loop_found", "compacted")
+    # the flags of the frame's one host read, before its device stamps, and
+    # the pose graph's node count after the frame
+    FLAGS = ("skip", "has_prev", "is_keyframe", "sc_found", "loop_found", "compacted",
+             "num_nodes")
 
     # the frame graph's conditional regions that hold hand kernels, counted
     # where the flags read after a replay says they ran
@@ -279,6 +284,8 @@ class FrameGraph:
         self._no_kf = fused.no_keyframe_output(self.device)
         self._bout = clone_state(self._no_kf)      # the keyframe region's output
         self.segments = Segments(self.device)
+        # the PGO's bucket regions (none where it has one bucket)
+        self._pgo_regions = posegraph.regions(cfg.loop.max_keyframes)
         self._layout: tuple | None = None      # pack_info's
         self._raw: torch.Tensor | None = None  # the frame's packed FrameInfo
         # the frame's host read: the flags, then the regions' device stamps
@@ -397,27 +404,32 @@ class FrameGraph:
             spans.mark("frame", True)
         b = self._bout
         flags = torch.stack([skip, has_prev, is_kf, b.sc_found, b.loop_found, b.compacted])
-        self._read[:len(self.FLAGS)].copy_(flags)
+        n = len(self.FLAGS) - 1
+        self._read[:n].copy_(flags)
+        self._read[n].copy_(self.state.backend.graph.num_nodes)
         return fr, out, self._read
 
     def _warm_up(self, fr: slam.FrontOutput, out: slam.SlamOutput) -> None:
         """Run once eagerly what the capture records and no frame has run:
         the fallback, if no frame took it, and the keyframe branch with its
         regions forced (`graph_cond.forcing`, each timed into `warmup_s`),
-        both on the live state, which they leave untouched."""
+        both on the live state, which they leave untouched: among them
+        every bucket of the PGO (`posegraph.regions`), so that each size's
+        solver workspaces exist before the capture."""
         cfg = self.cfg
         if not self._fallback_ran:
             t0 = time.perf_counter()
             warm_up(lambda: slam.fallback(self.state.slam, fr, cfg), self.state)
             self.warmup_s["fallback"] = time.perf_counter() - t0
         _, era_qual = fused.frame_quality(self.state.log, out, cfg)
-        with graph_cond.forcing(self.KEYFRAME_REGIONS, self.warmup_s):
+        forced = self.KEYFRAME_REGIONS + self._pgo_regions
+        with graph_cond.forcing(forced, self.warmup_s):
             t0 = time.perf_counter()
             warm_up(lambda: self._keyframe_branch(fr, out, era_qual), self.state)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.warmup_s["keyframe"] = (time.perf_counter() - t0 - sum(
-            self.warmup_s.get(r, 0.0) for r in self.KEYFRAME_REGIONS))
+            self.warmup_s.get(r, 0.0) for r in forced))
 
     # ---- one frame ----------------------------------------------------------
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamp,
@@ -452,12 +464,18 @@ class FrameGraph:
         with rec.span("graph.read"):
             read = read.tolist()        # the frame's one host read
         with rec.span("graph.unpack"):
-            skip, has_prev, is_kf, found, accept, compacted = map(bool, read[:len(self.FLAGS)])
+            *flags, nodes = read[:len(self.FLAGS)]
+            skip, has_prev, is_kf, found, accept, compacted = map(bool, flags)
             ran = {"fallback": skip and has_prev, "keyframe": is_kf,
                    "compact": compacted, "verify": found, "accept": accept,
                    "rebuild": accept and self.cfg.mapping.rebuild_on_loop}
+            solved = accept and self.cfg.loop.online_pgo
+            size = posegraph.bucket(nodes, self.cfg.loop.max_keyframes)
+            ran.update({r: solved and r == f"pgo.{size}" for r in self._pgo_regions})
             if replayed:
                 self.segments.count_regions("frame", ran)
+                if solved:
+                    posegraph.solves[size] += 1
             self.last_flags = ran
             out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
             self.last_output = out
@@ -470,7 +488,8 @@ class FrameGraph:
             if key not in warmups:
                 self._warm_up(fr, out)
                 warmups[key] = self.warmup_s
-            self.segments.capture("frame", self._frame, self.REGIONS)
+            self.segments.capture("frame", self._frame,
+                                  self.REGIONS + self._pgo_regions)
             self.calibrate()
         return info
 

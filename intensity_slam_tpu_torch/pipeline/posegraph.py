@@ -6,14 +6,16 @@ whose linear system is a DENSE 6K x 6K Cholesky in relative (odometry-chain)
 coordinates, tried for a small ladder of dampings at once, keeping the
 lowest frozen-weight cost including the no-move option.  Loop edges carry a
 squared-DCS robust weight against a linear-in-path drift envelope, and
-`consistent_loop_mask` is the PCM vote over the loop table.
+`consistent_loop_mask` is the PCM vote over the loop table.  Unlike the
+JAX package, `optimize` factors only the leading block of node slots that
+holds the graph's nodes (`bucket`), not all K.
 
-Port notes: Jacobians are forward-mode (`torch.func.jvp`, six tangents per
-batch, as the JAX package's `jax.jacfwd`); `lax.associative_scan` becomes a
-log-step (Hillis-Steele) prefix composition; a failed Cholesky
-(`cholesky_ex` info > 0) yields a NaN candidate, which the cost test then
-rejects, as in the JAX package; the factor is applied by two triangular
-solves.  Nothing here reads the device, so `optimize` and
+Port notes: Jacobians are forward-mode (`torch.func.jvp` under `vmap`
+over six tangents, as the JAX package's `jax.jacfwd`);
+`lax.associative_scan` becomes a log-step (Hillis-Steele) prefix
+composition; a failed Cholesky (`cholesky_ex` info > 0) yields a NaN
+candidate, which the cost test then rejects, as in the JAX package; the
+factor is applied by two triangular solves.  Nothing here reads the device, so `optimize` and
 `consistent_loop_mask` run inside a captured CUDA graph (the keyframe
 branch's accept and verify regions, `pipeline.frame_graph`).  Functions return new tensors and leave
 their inputs untouched.
@@ -21,10 +23,11 @@ their inputs untouched.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
-from torch.func import jvp
+from torch.func import jvp, vmap
 
 from ..config import LoopConfig
 from ..utils import graph_cond, index, se3
@@ -190,12 +193,14 @@ def _edge_residuals(g: PoseGraph, poses: Pose, odo_sqrt_info, prior_sqrt_info
 
 def _jac6(f, batch_shape, device) -> torch.Tensor:
     """Jacobian blocks of a batched map f: (..., 6) -> (..., 6) whose output
-    row b depends only on input row b, at 0: six forward-mode passes.
-    Returns (..., 6 out, 6 in)."""
+    row b depends only on input row b, at 0: one forward-mode pass that
+    carries the six unit tangents at once (`vmap` over `jvp`), its columns
+    bit-equal to six single-tangent passes.  Returns (..., 6 out, 6 in)."""
     x0 = torch.zeros(tuple(batch_shape) + (6,), device=device)
-    eye = torch.eye(6, device=device)
-    cols = [jvp(f, (x0,), (eye[i].expand_as(x0),))[1] for i in range(6)]
-    return torch.stack(cols, dim=-1)
+    lead = (1,) * len(batch_shape)
+    tangents = torch.eye(6, device=device).reshape(6, *lead, 6).expand(6, *batch_shape, 6)
+    cols = vmap(lambda t: jvp(f, (x0,), (t,))[1])(tangents)
+    return cols.movedim(0, -1)
 
 
 def _edge_jacobians(rel_est: Pose, odo_rel: Pose, odo_si: torch.Tensor):
@@ -426,6 +431,61 @@ def _take_best(poses: Pose, cands: Pose, costs: torch.Tensor) -> Pose:
                 index.take(torch.cat([poses.t[None], cands.t]), best))
 
 
+# The dense solve is sized to the graph's live nodes: the smallest bucket
+# that holds `num_nodes` among the powers of two from BUCKET_MIN below the
+# slot count K, and K itself.  Every slot past `num_nodes` is an identity
+# row with a zero right-hand side (`_dense_update_multi`'s gauge and
+# padding mask), decoupled from the rest, so the leading block's solution
+# is the same whether or not the padding is factored.
+BUCKET_MIN = 128
+
+# solves by bucket size: the eager ones counted here, a replayed frame
+# graph's from its flags read (`pipeline.frame_graph.FrameGraph`)
+solves: collections.Counter = collections.Counter()
+
+
+def buckets(max_nodes: int) -> tuple[int, ...]:
+    """The node counts a graph of `max_nodes` slots is solved at: the powers
+    of two from `BUCKET_MIN` below `max_nodes`, then `max_nodes` (alone
+    where it is at most `BUCKET_MIN`)."""
+    out, b = [], BUCKET_MIN
+    while b < max_nodes:
+        out.append(b)
+        b *= 2
+    return (*out, max_nodes)
+
+
+def bucket(num_nodes: int, max_nodes: int) -> int:
+    """The bucket a graph of `max_nodes` slots with `num_nodes` nodes is
+    solved at: the smallest one that holds them."""
+    return next(b for b in buckets(max_nodes) if b >= num_nodes)
+
+
+def regions(max_nodes: int) -> tuple[str, ...]:
+    """The conditional regions of `optimize`'s buckets (`pgo.<size>`);
+    none where there is one bucket, which is solved without a region."""
+    sizes = buckets(max_nodes)
+    return tuple(f"pgo.{b}" for b in sizes) if len(sizes) > 1 else ()
+
+
+def _leading(g: PoseGraph, n: int) -> PoseGraph:
+    """`g` cut to its leading `n` node slots (n >= num_nodes).  The loop
+    indices are clamped into them: a valid loop's lie below `num_nodes`,
+    and an invalid slot's stale ones carry no weight."""
+    cut = lambda p: Pose(p.q[:n], p.t[:n])
+    return g._replace(poses=cut(g.poses), node_valid=g.node_valid[:n],
+                      odo_rel=cut(g.odo_rel), odo_qual=g.odo_qual[:n],
+                      loop_i=torch.clamp(g.loop_i, 0, n - 1),
+                      loop_j=torch.clamp(g.loop_j, 0, n - 1))
+
+
+def _count(size: int, device) -> None:
+    """Count a solve at `size` run eagerly (not under capture, not a forced
+    warm-up's)."""
+    if not graph_cond.capturing(device) and not graph_cond.warming():
+        solves[size] += 1
+
+
 def optimize(
     g: PoseGraph,
     gn_iters: int = 8,
@@ -445,7 +505,48 @@ def optimize(
     differ from `LoopConfig` — callers pass the config values.  Loop edges
     are reweighted per iteration by min(1, (2c^2/(c^2+s))^2), s the residual
     whitened by the plausible-drift envelope; odometry edges carry per-edge
-    noise scaled by their step length (see the JAX package's docstring)."""
+    noise scaled by their step length (see the JAX package's docstring).
+
+    The solve (`_solve`) runs on the leading `bucket(num_nodes, K)` slots
+    alone, each bucket a region `pgo.<size>` (`graph_cond.when`) whose
+    predicates on `num_nodes` exclude each other: an If node under capture,
+    a host read eagerly.  The bucket writes its poses over the leading
+    slots; the slots past it are left as they were, as the full solve
+    leaves every invalid slot.  With one bucket the solve runs on all K
+    slots, with no region."""
+    kw = dict(gn_iters=gn_iters, odo_noise=odo_noise, loop_cauchy_c=loop_cauchy_c,
+              drift_rate=drift_rate, drift_rot_rate=drift_rot_rate,
+              loop_active=loop_active)
+    K = g.node_valid.shape[0]
+    dev = g.node_valid.device
+    sizes = buckets(K)
+    if len(sizes) == 1:
+        _count(K, dev)
+        return g._replace(poses=_solve(g, **kw))
+    q, t = g.poses.q.clone(), g.poses.t.clone()
+    lo = 0
+    for b in sizes:
+        on = (g.num_nodes > lo) & (g.num_nodes <= b) if lo else g.num_nodes <= b
+        with graph_cond.when(on, f"pgo.{b}") as taken:
+            if taken:
+                _count(b, dev)
+                new = _solve(_leading(g, b), **kw)
+                q[:b].copy_(new.q)
+                t[:b].copy_(new.t)
+        lo = b
+    return g._replace(poses=Pose(q, t))
+
+
+def _solve(
+    g: PoseGraph,
+    gn_iters: int,
+    odo_noise: tuple,
+    loop_cauchy_c: float,
+    drift_rate: float,
+    drift_rot_rate: float,
+    loop_active: torch.Tensor | None,
+) -> Pose:
+    """`optimize`'s solve on all of `g`'s slots: the optimized poses."""
     K = g.node_valid.shape[0]
     E = g.loop_valid.shape[0]
     loop_on = g.loop_valid if loop_active is None else g.loop_valid & loop_active
@@ -472,7 +573,7 @@ def optimize(
         cand_costs = _frozen_cost(cands, g.odo_rel, odo_si_eff, g.loop_i,
                                   g.loop_j, g.loop_rel, loop_si)
         poses = _take_best(poses, cands, torch.cat([cost_old[None], cand_costs]))
-    return g._replace(poses=poses)
+    return poses
 
 
 def chain_poses(odo_rel: Pose, num_nodes: torch.Tensor) -> Pose:

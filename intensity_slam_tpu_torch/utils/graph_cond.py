@@ -78,7 +78,9 @@ from .tree import clone_state, donate
 SOURCE = os.path.join(nvcc.CSRC_DIR, "graph_cond.cu")
 LIBRARY = os.path.join(nvcc.BUILD_DIR, "libisl_graph_cond.so")
 THREAD_LOCAL = 1        # cudaStreamCaptureModeThreadLocal, torch's capture mode here
-MAX_DEPTH = 3           # nodes nested (a stream and a pool a depth)
+# nodes nested, a stream and a pool a depth: the PGO's buckets lie inside
+# accept, inside verify, inside the keyframe branch
+MAX_DEPTH = 4
 
 _host_bool = torch.Tensor.__bool__
 _lib = None
@@ -263,6 +265,12 @@ def forcing(names, seconds: dict):
     finally:
         _forced.clear()
         _forced.update(saved)
+
+
+def warming() -> bool:
+    """Whether regions are being forced (`forcing`): a block that runs now
+    is a warm-up's, not a step's."""
+    return bool(_forced)
 
 
 @contextlib.contextmanager

@@ -12,7 +12,8 @@ small_test_config shapes:
 (c) `posegraph.optimize` with the two triangular solves is within 1e-6 (m,
     quaternion components) of the `cholesky_solve` form it replaces and
     within 1e-4 of the JAX PGO (test_torch_loop.py's tolerance: float32
-    rounding order);
+    rounding order); its Jacobian blocks, one `vmap` pass over six tangents,
+    and the solve they feed are bit-equal to six single-tangent passes;
 (d) `FrameGraph` over the 38-frame out-and-back with `max_keyframes` 8 (a
     compaction at the ninth keyframe, an accepted loop at frame 36, the map
     rebuilt: `rebuild_on_loop`) is bit-equal to a loop of the functional
@@ -21,7 +22,9 @@ small_test_config shapes:
     capturability), the solver and the capacity policy in their conditional
     forms; the keyframe, compact, verify, accept and rebuild regions run
     exactly where the flags read after the frame say, and the frame's flags
-    read (the flags, then the regions' device stamps) is its one `tolist`.
+    read (the flags, then the regions' device stamps) is its one `tolist`;
+    eagerly, `posegraph.solves` counts one solve an accepted loop, in both
+    the functional loop and the frame graph.
 """
 
 import contextlib
@@ -33,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import jvp
 
 from intensity_slam_tpu import config as JC
 from intensity_slam_tpu.ops import bow as JB
@@ -215,6 +219,37 @@ def test_optimize_triangular_solves_against_cholesky_solve_and_jax(monkeypatch):
     np.testing.assert_allclose(np.asarray(jo.poses.q), new.poses.q.numpy(), atol=1e-4)
 
 
+def _jac6_six_passes(f, batch_shape, device):
+    """The six single-tangent forward-mode passes `posegraph._jac6` replaces."""
+    x0 = torch.zeros(tuple(batch_shape) + (6,), device=device)
+    eye = torch.eye(6, device=device)
+    return torch.stack([jvp(f, (x0,), (eye[i].expand_as(x0),))[1] for i in range(6)], dim=-1)
+
+
+def test_jacobians_in_one_pass_equal_six_passes(monkeypatch):
+    g = _random_graph(7, 17)
+    lc = config.LoopConfig()
+    kw = dict(gn_iters=3, odo_noise=lc.odom_noise, loop_cauchy_c=lc.loop_cauchy_c,
+              drift_rate=lc.loop_drift_rate, drift_rot_rate=lc.loop_drift_rot_rate,
+              loop_active=None)
+    poses = g.poses
+    rel_est = se3.compose(se3.inverse(Pose(torch.roll(poses.q, 1, 0),
+                                           torch.roll(poses.t, 1, 0))), poses)
+    si = torch.rand(L_LOOPS, 6, generator=torch.Generator().manual_seed(0)) * g.loop_valid[:, None]
+
+    def blocks():
+        return (TPG._edge_jacobians(rel_est, g.odo_rel, si[:K_NODES])[1],
+                TPG._loop_jacobians(poses, g.loop_i, g.loop_j, g.loop_rel, si)[1],
+                TPG._solve(g, **kw))
+
+    edge, loop, solved = blocks()
+    monkeypatch.setattr(TPG, "_jac6", _jac6_six_passes)
+    edge6, loop6, solved6 = blocks()
+    assert torch.equal(edge, edge6) and torch.equal(loop, loop6)
+    assert float(edge.abs().max()) > 0 and float(loop.abs().max()) > 0
+    assert torch.equal(solved.t, solved6.t) and torch.equal(solved.q, solved6.q)
+
+
 # ---- (d) the frame graph over keyframes, a compaction and an accepted loop -------
 
 FRAMES = 38
@@ -235,17 +270,18 @@ def out_and_back():
     mask = projection.detection_mask(cfg.sensor, device="cpu")
     st = fused.init_state(cfg, seed=3, device="cpu")
     infos = []
+    TPG.solves.clear()
     for k in range(FRAMES):
         st, info = fused.fused_step(st, xyz[k], inten[k], 0.1 * k, mask, cfg)
         infos.append(info)
-    return cfg, xyz, inten, st, infos
+    return cfg, xyz, inten, st, infos, dict(TPG.solves)
 
 
 SEGMENTS = ("_front", "_fallback", "_back", "_keyframe", "_log")
 
 
 def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monkeypatch):
-    cfg, xyz, inten, st, infos = out_and_back
+    cfg, xyz, inten, st, infos, _ = out_and_back
     kfs = [k for k, i in enumerate(infos) if bool(i.is_keyframe)]
     loops = [k for k, i in enumerate(infos) if bool(i.loop_found)]
     compacted = [k for k, i in enumerate(infos) if bool(i.compacted)]
@@ -273,6 +309,7 @@ def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monke
 
     monkeypatch.setattr(torch.Tensor, "tolist", counted)
     regions = []
+    TPG.solves.clear()
     for k in range(FRAMES):
         graph_cond.ran.clear()
         reads.clear()
@@ -289,7 +326,20 @@ def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monke
     for r in ("keyframe", "compact", "verify", "accept", "rebuild"):
         assert sum(t[r] for t in regions) >= 1, (r, regions)
     assert [k for k, t in enumerate(regions) if t["accept"]] == loops
+    # the eager frames' solves, counted once each
+    assert TPG.solves == {cfg.loop.max_keyframes: len(loops)}
     assert [k for k, t in enumerate(regions) if t["compact"]] == compacted
+
+
+def test_solve_counter_counts_each_accepted_loop(out_and_back):
+    """Eagerly `posegraph.solves` counts one solve a loop that
+    `fused_step` accepted, at the graph's one bucket: its 8 slots, at most
+    128, are solved whole."""
+    cfg, _, _, _, infos, solves = out_and_back
+    K = cfg.loop.max_keyframes
+    loops = [k for k, i in enumerate(infos) if bool(i.loop_found)]
+    assert loops and TPG.buckets(K) == (K,) and TPG.regions(K) == ()
+    assert solves == {K: len(loops)}
 
 
 def test_regions_hand_results_on_through_buffers(out_and_back):
@@ -309,7 +359,7 @@ def test_warm_up_forces_the_keyframe_regions(out_and_back, monkeypatch):
     """Before its capture `FrameGraph` runs the keyframe branch once with
     every region forced (each timed into `warmup_s`) on the live state,
     which it leaves untouched."""
-    cfg, xyz, inten, st, _ = out_and_back
+    cfg, xyz, inten, st, _, _ = out_and_back
     fg = frame_graph.FrameGraph(cfg, "cpu", seed=3)
     fg.step(xyz[0], inten[0], 0.0)
     before = fg.snapshot()
