@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    source started together (`csrc/nn.cu`, the nearest-neighbour kernels;
    `csrc/eigsym.cu`, the Jacobi eigensolver; `csrc/svd3.cu`, the ICP's 3x3
    SVD; `csrc/graph_cond.cu`, the conditional nodes' handle kernel;
-   `csrc/stamp.cu`, the span recorder's stamp kernel), and
+   `csrc/stamp.cu`, the span recorder's stamp kernel; `csrc/mapsolve.cu`,
+   scan-to-map's pose solve), and
    print nvcc's register/shared-memory report and the build time;
 2. kernel: hold both kernels (`pack_kernel`, `nn_packed_kernel`) against
    their plain PyTorch versions at the ICP shapes (P = 2048 sources,
@@ -30,7 +31,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    it: rotations U Vt within 1e-4 where unique, a rotation everywhere
    (|R R^T - I| and |det R - 1| under 1e-5), U S Vt within 1e-5 of the
    input, two launches bit-equal; timed at the ICP's shape (one matrix)
-   beside its plain version and `torch.linalg.svd` (also `--phase svd`);
+   beside its plain version and `torch.linalg.svd` (also `--phase svd`).
+   Then scan-to-map's pose solve (`mapsolve_eval_kernel`,
+   `mapsolve_step_kernel`, `ops/mapsolve.py`) against its plain version
+   (`solver.solve_pose` over the residual closures) on each solve of a
+   full-width corridor stepped on the card and on three of them as one
+   batch: pose, quaternion, cost and iterations within the larger of the
+   fixed tolerances and twice what the plain solve moves when only the
+   order of its rows changes (a solve's last tests are decided by rounding),
+   the batch bit-equal to its sessions alone, a captured solve's two replays
+   bit-equal; timed as captured graphs beside the plain solve's graph (also
+   `--phase mapsolve`);
 3. grid: the voxel grid-hash map at full width (32768 sets x 4 ways x 8
    slots): one rendered frame, downsampled at the ground and at the corner
    voxel size, and one 2 097 152-point rebuild batch (the first of the two
@@ -271,7 +282,8 @@ The line before the last is the per-kernel JSON record; the last line is
 
     python3 chip_smoke.py --phase NAME
 
-with NAME one of kernel, svd (the kernel phase's SVD part), grid, small,
+with NAME one of kernel, svd (the kernel phase's SVD part), mapsolve (its
+pose-solve part), grid, small,
 fallback, slice, graph, eig (the graph phase's eigensolver part), cond (its
 If-node part), stream-small,
 checkpoint, geoslam, stream, refine, tools, measure, multisession
@@ -313,8 +325,8 @@ import torch.distributed as dist
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import (eigsym, grid_hash, icp, pallas_nn, projection,
-                                          solver, svd3, voxel)
+from intensity_slam_tpu_torch.ops import (eigsym, grid_hash, icp, mapsolve, pallas_nn,
+                                          projection, solver, svd3, voxel)
 from intensity_slam_tpu_torch.parallel import ba_builder, dist_ba, dist_backend, multiproc
 from intensity_slam_tpu_torch.pipeline import (frame_graph, fused, geometric_slam, loop,
                                                mapping, odometry, slam)
@@ -322,6 +334,7 @@ from intensity_slam_tpu_torch.pipeline.system import SlamSystem
 from intensity_slam_tpu_torch.runtime import ScanLog, ScanLogWriter, stream
 from intensity_slam_tpu_torch.utils import device as devices
 from intensity_slam_tpu_torch.utils import graph_cond, se3, spans
+from intensity_slam_tpu_torch.utils.tree import clone_state
 
 # NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = devices.H100_SXM
@@ -686,6 +699,7 @@ def kernel_phase(dev, cfg) -> dict:
           f"{floor_ms:.4f} ms (33 back to back: {floor_batch_ms:.4f} ms each)")
     return dict(
         svd3=svd_kernel_phase(dev, cfg),
+        mapsolve=mapsolve_kernel_phase(dev),
         nn=dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound, bound_by=bound_by, batch_ms=batch_ms,
                 device_ms=device_us / 1e3, floor_ms=floor_ms),
@@ -794,10 +808,189 @@ def svd_kernel_phase(dev, cfg) -> dict:
                 bound_ms=bound, bound_by=bound_by, device_ms=device_us / 1e3)
 
 
-# the hand kernels' wrappers by the key of their record (`KERNELS`)
+MAPSOLVE_FRAMES = 6        # full-width corridor frames whose solves are checked
+MAPSOLVE_PERMUTED = 4      # plain solves with their rows permuted, a case
+MAPSOLVE_POSE_TOL_M, MAPSOLVE_QUAT_TOL, MAPSOLVE_COST_TOL = 1e-5, 1e-6, 1e-5
+MAPSOLVE_MAX_REJECT = 3    # the rejections in a row that end a solve
+
+
+def mapsolve_bound_ms(rows: dict, steps: int) -> tuple[float, str]:
+    """Least time of `steps` evaluations of scan-to-map's rows on this card:
+    the rows' bytes (a plane row 32 B, a line 40 B, a point 28 B) read
+    once an evaluation, against their FP32 operations (about 160 a plane
+    row, 430 a line, 390 a point: the rotated point, the Jacobian row, the
+    27 products and sums of J^T J, J^T r and the cost)."""
+    t_bytes = steps * (32 * rows["planes"] + 40 * rows["lines"]
+                       + 28 * rows["points"]) / PEAK_BYTES_PER_S
+    t_ops = steps * (160 * rows["planes"] + 430 * rows["lines"]
+                     + 390 * rows["points"]) / PEAK_FP32_FLOPS
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _mapsolve_calls(dev, cfg, frames: int) -> list:
+    """The arguments of each `mapsolve.solve` call of `slam_step` over a
+    corridor rendered on the card."""
+    traj = synthetic.corridor_trajectory(frames, speed=0.35, device=dev)
+    xyz, inten = synthetic.render_sequence(traj, synthetic.corridor_world(device=dev),
+                                           cfg.sensor)
+    mask = projection.detection_mask(cfg.sensor, device=dev)
+    calls, solve = [], mapsolve.solve
+
+    def recording(*a, **k):
+        calls.append((clone_state(a), k))
+        return solve(*a, **k)
+    mapsolve.solve = recording
+    try:
+        st = slam.init_state(cfg, device=dev)
+        for k in range(frames):
+            st, _ = slam.slam_step(st, xyz[k], inten[k], k * 0.1, mask, cfg)
+    finally:
+        mapsolve.solve = solve
+    return calls
+
+
+def _mapsolve_permuted(a, gen):
+    prior, si, *groups = a
+
+    def perm(group):
+        if group is None:
+            return None
+        p = torch.randperm(group[0].shape[-2], generator=gen).to(group[0].device)
+        return tuple(x[..., p, :] if x.dim() == group[0].dim() else x[..., p] for x in group)
+    return (prior, si, *map(perm, groups))
+
+
+def _mapsolve_agree(kern, plain, spread) -> tuple[bool, dict]:
+    """The kernels within the larger of the fixed tolerances and twice the
+    plain solve's own spread under permuted rows; each session's iterations
+    the plain solve's, a permuted run's, or at most the three rejections
+    that end a solve away from them."""
+    mx = lambda x: float(x.abs().max())
+    rel = lambda a, b: mx((a - b) / b.abs().clamp(min=1e-12))
+    d = dict(t=mx(kern.pose.t - plain.pose.t), q=mx(kern.pose.q - plain.pose.q),
+             cost=rel(kern.final_cost, plain.final_cost),
+             spread_t=max(mx(x.pose.t - plain.pose.t) for x in spread),
+             spread_q=max(mx(x.pose.q - plain.pose.q) for x in spread),
+             spread_cost=max(rel(x.final_cost, plain.final_cost) for x in spread),
+             its=kern.iterations.tolist(), plain_its=plain.iterations.tolist(),
+             permuted_its=[x.iterations.tolist() for x in spread])
+    runs = [d["plain_its"]] + d["permuted_its"]
+    per = lambda x: x if isinstance(x, list) else [x]
+    its_ok = all(k in seen or abs(k - per(d["plain_its"])[b]) <= MAPSOLVE_MAX_REJECT
+                 for b, (k, *seen) in enumerate(zip(per(d["its"]), *map(per, runs))))
+    ok = (d["t"] <= max(MAPSOLVE_POSE_TOL_M, 2 * d["spread_t"])
+          and d["q"] <= max(MAPSOLVE_QUAT_TOL, 2 * d["spread_q"])
+          and d["cost"] <= max(MAPSOLVE_COST_TOL, 2 * d["spread_cost"]) and its_ok)
+    return ok, d
+
+
+def _mapsolve_graph(fn, a, k):
+    """`fn(*a, **k)` captured (its loop as conditional nodes): the graph and
+    its result."""
+    fn(*a, **k)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with graph_cond.capture(g, torch.cuda.graph_pool_handle()):
+        res = fn(*a, **k)
+    torch.cuda.synchronize()
+    return g, res
+
+
+def mapsolve_kernel_phase(dev) -> dict:
+    """Scan-to-map's pose solve (`ops/mapsolve.py`, `csrc/mapsolve.cu`)
+    against its plain version at full width (see the module docstring), then
+    its times: the solve captured as a graph (a node an iteration) beside
+    the plain solve's graph, CUDA events, and the kernels' device-side
+    durations."""
+    cfg = config.SlamConfig()
+    calls = _mapsolve_calls(dev, cfg, MAPSOLVE_FRAMES)
+    gen = torch.Generator().manual_seed(0)
+    worst = dict(t=0.0, q=0.0, cost=0.0)
+    rows, equal = [], 0
+    for n, (a, k) in enumerate(calls):
+        kern = mapsolve.solve(*a, **k)
+        plain = mapsolve.solve_plain(*a, **k)
+        spread = [mapsolve.solve_plain(*_mapsolve_permuted(a, gen), **k)
+                  for _ in range(MAPSOLVE_PERMUTED)]
+        ok, d = _mapsolve_agree(kern, plain, spread)
+        rows.append(d)
+        equal += d["its"] == d["plain_its"]
+        print(f"mapsolve case {n}: iterations {d['its']} plain {d['plain_its']} permuted "
+              f"{d['permuted_its']}; |dt| {d['t']:.3g} m (plain's spread {d['spread_t']:.3g}), "
+              f"|dq| {d['q']:.3g} ({d['spread_q']:.3g}), cost {d['cost']:.3g} "
+              f"({d['spread_cost']:.3g})")
+        check(ok, f"mapsolve: case {n} outside its tolerances: {d}")
+        for key in worst:
+            worst[key] = max(worst[key], d[key])
+    # three solves as one batch: each session bit-equal to its solve alone
+    its = [r["its"] for r in rows]
+    picked = sorted(range(len(its)), key=lambda i: its[i])
+    picked = [picked[0], picked[-1], picked[-2]]
+    args = [calls[i][0] for i in picked]
+    k = calls[0][1]
+    stack = lambda f: torch.stack([f(x) for x in args])
+    batch = (se3.Pose(stack(lambda x: x[0].q), stack(lambda x: x[0].t)),
+             stack(lambda x: x[1]),
+             *[None if args[0][g] is None else
+               tuple(stack(lambda x, g=g, i=i: x[g][i]) for i in range(len(args[0][g])))
+               for g in (2, 3, 4)])
+    kb = mapsolve.solve(*batch, **k)
+    alone = [mapsolve.solve(*x, **k) for x in args]
+    same = all(torch.equal(one.pose.t, kb.pose.t[b]) and torch.equal(one.pose.q, kb.pose.q[b])
+               and torch.equal(one.final_cost, kb.final_cost[b])
+               and torch.equal(one.iterations, kb.iterations[b]) for b, one in enumerate(alone))
+    ok, d = _mapsolve_agree(kb, mapsolve.solve_plain(*batch, **k),
+                            [mapsolve.solve_plain(*_mapsolve_permuted(batch, gen), **k)
+                             for _ in range(MAPSOLVE_PERMUTED)])
+    print(f"mapsolve batch of cases {picked}: iterations {kb.iterations.tolist()}, each "
+          f"session bit-equal to its solve alone {same}; against the batched plain solve "
+          f"|dt| {d['t']:.3g} m (spread {d['spread_t']:.3g}), iterations {d['plain_its']}")
+    check(same, "mapsolve: a batch's session differs from its solve alone")
+    check(ok, f"mapsolve: the batch outside its tolerances: {d}")
+    # one case captured: two replays bit-equal, equal to the eager kernels
+    a, k = calls[min(2, len(calls) - 1)]
+    g, res = _mapsolve_graph(mapsolve.solve, a, k)
+    out = lambda r: [r.pose.q, r.pose.t, r.final_cost, r.iterations, r.grad_norm]
+    g.replay()
+    torch.cuda.synchronize()
+    first = [x.clone() for x in out(res)]
+    g.replay()
+    torch.cuda.synchronize()
+    replay_same = all(torch.equal(x, y) for x, y in zip(first, out(res)))
+    eager_same = all(torch.equal(x, y) for x, y in zip(first, out(mapsolve.solve(*a, **k))))
+    check(replay_same and eager_same, f"mapsolve: replays bit-equal {replay_same}, equal "
+          f"to the eager kernels {eager_same}")
+    pg, _ = _mapsolve_graph(mapsolve.solve_plain, a, k)
+    ms = time_cuda(g.replay)
+    plain_ms = time_cuda(pg.replay)
+    eval_us = kernel_device_us(lambda: mapsolve.solve(*a, **k), "mapsolve_eval_kernel")
+    step_us = kernel_device_us(lambda: mapsolve.solve(*a, **k), "mapsolve_step_kernel")
+    plain_kernels = device_kernels(pg.replay)
+    kernels = device_kernels(g.replay)
+    n_its = int(res.iterations)
+    sizes = dict(planes=a[2][0].shape[-2], lines=0 if a[3] is None else a[3][0].shape[-2],
+                 points=0 if a[4] is None else a[4][0].shape[-2])
+    bound, bound_by = mapsolve_bound_ms(sizes, n_its + 1)
+    print(f"  mapsolve timing (case {min(2, len(calls) - 1)}: {sizes}, {n_its} iterations of "
+          f"{k['iters']}; captured graphs, CUDA events, median of single replays): kernels "
+          f"{ms:.4f} ms in {kernels} device operations, plain {plain_ms:.4f} ms in "
+          f"{plain_kernels}; device-side mapsolve_eval_kernel {eval_us:.2f} us, "
+          f"mapsolve_step_kernel {step_us:.2f} us (torch.profiler, medians); bound "
+          f"{bound:.6f} ms ({bound_by}); iterations equal to plain in {equal} of "
+          f"{len(calls)} cases; {devices.describe('cuda')}")
+    return dict(max_abs_err=worst["t"], max_quat_err=worst["q"], max_cost_rel_err=worst["cost"],
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
+                device_ms=(eval_us * (n_its + 1) + step_us * (n_its + 1)) / 1e3,
+                eval_device_ms=eval_us / 1e3, step_device_ms=step_us / 1e3,
+                device_kernels=kernels, plain_device_kernels=plain_kernels,
+                iterations_equal=equal, cases=len(calls))
+
+
+# the hand kernels' wrappers (or their module) by the key of their record
+# (`KERNELS`)
 WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
             "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "svd3": svd3.svd3,
-            "cond": graph_cond.set_handle, "stamp": spans.stamp}
+            "mapsolve": mapsolve, "cond": graph_cond.set_handle, "stamp": spans.stamp}
 
 
 def reset_launches() -> None:
@@ -2210,32 +2403,40 @@ MS_COUNT_FRAMES = 6
 
 @contextlib.contextmanager
 def solver_loop_tests():
-    """Count the loop tests (host reads) that `solver.solve_pose`'s calls
-    make for the length of the block: a solve that stops after k < iters
-    iterations tests k + 1 times, one that reaches `iters` tests iters
-    times, and a batched solve iterates as long as its slowest session."""
-    fn = solver.solve_pose
+    """Count the loop tests (host reads) that the calls of
+    `solver.solve_pose` and `mapsolve.solve` make for the length of the
+    block: a solve that stops after k < iters iterations tests k + 1 times,
+    one that reaches `iters` tests iters times, and a batched solve iterates
+    as long as its slowest session."""
+    fns = {(solver, "solve_pose"): solver.solve_pose, (mapsolve, "solve"): mapsolve.solve}
+    sites = {solver: f"solver.py:{solver_loop_line()}",
+             mapsolve: f"mapsolve.py:{mapsolve_loop_line()}"}
     calls = []
 
-    def counting(*a, **k):
-        out = fn(*a, **k)
-        calls.append((out.iterations, k.get("iters", 20)))
-        return out
+    def counter(mod, fn):
+        def counting(*a, **k):
+            out = fn(*a, **k)
+            calls.append((sites[mod], out.iterations, k.get("iters", 20)))
+            return out
+        return counting
 
-    solver.solve_pose = counting
+    for (mod, name), fn in fns.items():
+        setattr(mod, name, counter(mod, fn))
     try:
         yield calls
     finally:
-        solver.solve_pose = fn
+        for (mod, name), fn in fns.items():
+            setattr(mod, name, fn)
 
 
-def loop_tests(calls) -> int:
-    """The loop tests of `solver_loop_tests`' recorded calls (read after
-    the sync counter has closed: the reads are the counter's own)."""
-    tests = 0
-    for its, cap in calls:
+def loop_tests(calls) -> collections.Counter:
+    """The loop tests of `solver_loop_tests`' recorded calls by the call
+    site of the test (read after the sync counter has closed: the reads are
+    the counter's own)."""
+    tests = collections.Counter()
+    for site, its, cap in calls:
         k = int(its.max())
-        tests += k + 1 if k < cap else cap
+        tests[site] += k + 1 if k < cap else cap
     return tests
 
 
@@ -2251,7 +2452,8 @@ def _ms_run(cfg, xb, ib, seeds, mask, dev, count=False, graphs=False):
     st = None if graphs else slam.init_batched_state(cfg, seeds, device=dev)
     outs, secs, replays = [], [], []
     F = xb.shape[0]
-    sites, kernels, tests, by_step = collections.Counter(), collections.Counter(), 0, []
+    sites, kernels, tests, by_step = (collections.Counter(), collections.Counter(),
+                                      collections.Counter(), [])
     dev_us = None
     from torch.profiler import ProfilerActivity
     for k in range(F):
@@ -2297,8 +2499,17 @@ def solver_loop_line() -> int:
     """The line of `solver.solve_pose`'s loop test (its one host read an
     iteration), as the sync counter keys it."""
     import inspect
-    lines, first = inspect.getsourcelines(solver.solve_pose)
+    fn = getattr(solver.solve_pose, "func", solver.solve_pose)    # a fixed-form partial
+    lines, first = inspect.getsourcelines(fn)
     return first + next(i for i, ln in enumerate(lines) if "bool(active" in ln)
+
+
+def mapsolve_loop_line() -> int:
+    """The line of the scan-to-map solve's loop test on the card (its one
+    host read an iteration, `mapsolve._solve_kernels`)."""
+    import inspect
+    lines, first = inspect.getsourcelines(mapsolve._solve_kernels)
+    return first + next(i for i, ln in enumerate(lines) if "bool(any_active" in ln)
 
 
 def multisession_phase(dev) -> dict:
@@ -2384,32 +2595,34 @@ def multisession_phase(dev) -> dict:
     s1, n1, k1 = e1["sites"], e1["tests"], e1["kernels"]
     s8, n8, k8 = e8["sites"], e8["tests"], e8["kernels"]
     st = slam.init_state(cfg, seed=0, device=dev)
-    s0, n0 = collections.Counter(), 0
+    s0, n0 = collections.Counter(), collections.Counter()
     for k in range(n - 1):
         with sync_counter(k > 0) as step_sites, solver_loop_tests() as step_tests:
             st, _ = slam.slam_step(st, one[0][k, 0], one[1][k, 0], k * 0.1, mask, cfg)
         if k > 0:
             s0.update(step_sites)
             n0 += loop_tests(step_tests)
-    loop_site = "solver.py:" + str(solver_loop_line())
+    loop_sites = ("solver.py:" + str(solver_loop_line()),
+                  "mapsolve.py:" + str(mapsolve_loop_line()))
     print(f"multisession: host syncs over steps 1..{n - 2}: eager B=1 {sum(s1.values())}, "
           f"B={B} {sum(s8.values())}, unbatched {sum(s0.values())}, graphed B=1 "
           f"{sum(g1['sites'].values())}, B={B} {sum(g8['sites'].values())}; solver loop "
-          f"tests {n1}, {n8}, {n0} (at {loop_site}); device kernels of step {n - 1}: eager "
+          f"tests {dict(n1)}, {dict(n8)}, {dict(n0)}; device kernels of step {n - 1}: eager "
           f"B=1 {sum(k1.values())}, B={B} {sum(k8.values())}, graphed B=1 "
           f"{sum(g1['kernels'].values())}, B={B} {sum(g8['kernels'].values())}", flush=True)
     print_sync_sites(s8)
     for name, runs in ((f"B=1", (s1, n1)), (f"B={B}", (s8, n8)), ("unbatched", (s0, n0))):
         sites, tests = runs
-        check(sites[loop_site] == tests,
-              f"multisession: {name}: {sites[loop_site]} syncs at the solver's loop test "
-              f"for {tests} loop tests")
-    others = [{k: v for k, v in c.items() if k != loop_site} for c in (s1, s8, s0)]
+        for loop_site in loop_sites:
+            check(sites[loop_site] == tests[loop_site],
+                  f"multisession: {name}: {sites[loop_site]} syncs at the loop test "
+                  f"{loop_site} for {tests[loop_site]} loop tests")
+    others = [{k: v for k, v in c.items() if k not in loop_sites} for c in (s1, s8, s0)]
     check(others[0] == others[1] == others[2],
           f"multisession: host syncs outside the solver's loop test differ: B=1 "
           f"{others[0]}, B={B} {others[1]}, unbatched {others[2]}")
     for name, r in (("B=1", g1), (f"B={B}", g8)):
-        check(r["sites"] == {flags_site: n - 2} and r["tests"] == 0,
+        check(r["sites"] == {flags_site: n - 2} and not sum(r["tests"].values()),
               f"multisession: graphed {name}: host syncs {dict(r['sites'])}, solver loop "
               f"tests {r['tests']}")
     diff = collections.Counter(k8)
@@ -2719,24 +2932,28 @@ def eig_kernel_phase(dev) -> dict:
 
 @contextlib.contextmanager
 def solve_records():
-    """Record every `solver.solve_pose` call for the length of the block:
-    (calling module, its `iterations` tensor, whether a capture recorded
-    it).  A captured call's tensor is the graph's buffer, which every replay
-    rewrites."""
-    fn = solver.solve_pose
+    """Record every `solver.solve_pose` and `mapsolve.solve` call for the
+    length of the block: (calling module, its `iterations` tensor, whether a
+    capture recorded it).  A captured call's tensor is the graph's buffer,
+    which every replay rewrites."""
+    fns = {(solver, "solve_pose"): solver.solve_pose, (mapsolve, "solve"): mapsolve.solve}
     calls = []
 
-    def recording(*a, **k):
-        out = fn(*a, **k)
-        caller = os.path.basename(sys._getframe(1).f_code.co_filename)[:-3]
-        calls.append((caller, out.iterations, graph_cond.capturing(out.iterations.device)))
-        return out
+    def recorder(fn):
+        def recording(*a, **k):
+            out = fn(*a, **k)
+            caller = os.path.basename(sys._getframe(1).f_code.co_filename)[:-3]
+            calls.append((caller, out.iterations, graph_cond.capturing(out.iterations.device)))
+            return out
+        return recording
 
-    solver.solve_pose = recording
+    for (mod, name), fn in fns.items():
+        setattr(mod, name, recorder(fn))
     try:
         yield calls
     finally:
-        solver.solve_pose = fn
+        for (mod, name), fn in fns.items():
+            setattr(mod, name, fn)
 
 
 def frame_iterations(calls, fell_back: bool) -> dict:
@@ -3224,6 +3441,7 @@ TRACE_KERNELS = {
     "eigh": lambda n: "jacobi_kernel" in n and ("true" in n or "(bool)1" in n),
     "eigvalsh": lambda n: "jacobi_kernel" in n and not ("true" in n or "(bool)1" in n),
     "svd3": lambda n: "svd3_kernel" in n,
+    "mapsolve": lambda n: "mapsolve_eval_kernel" in n or "mapsolve_step_kernel" in n,
     "nn": lambda n: "nn_packed_kernel" in n,
     "pack": lambda n: "pack_kernel" in n and "nn_packed" not in n,
     "cond": lambda n: "set_handle_kernel" in n,
@@ -3268,6 +3486,11 @@ EIG_SOURCE = ("intensity_slam_tpu_torch/csrc/eigsym.cu",
 SVD_SOURCE = ("intensity_slam_tpu_torch/csrc/svd3.cu",
               "no Pallas source: XLA's jnp.linalg.svd and the reflection rule at "
               "intensity_slam_tpu/ops/icp.py:58-61 (_umeyama_step)")
+MAPSOLVE_SOURCE = ("intensity_slam_tpu_torch/csrc/mapsolve.cu",
+                   "no Pallas source: the lax.while_loop of solve_pose at "
+                   "intensity_slam_tpu/ops/solver.py:177 over the point-to-plane, prior, "
+                   "point-to-line (and point-to-point) residuals that "
+                   "pipeline/mapping.py's mapping_step stacks")
 COND_SOURCE = ("intensity_slam_tpu_torch/csrc/graph_cond.cu",
                "no Pallas source: the predicates of lax.while_loop at "
                "intensity_slam_tpu/ops/solver.py:177, of lax.cond at pipeline/slam.py:126, "
@@ -3284,6 +3507,8 @@ KERNELS = (
     ("eigh", "jacobi_kernel<3, vectors> (eigsym.eigh)", *EIG_SOURCE),
     ("eigvalsh", "jacobi_kernel<6, values> (eigsym.eigvalsh)", *EIG_SOURCE),
     ("svd3", "svd3_kernel (svd3.svd3)", *SVD_SOURCE),
+    ("mapsolve", "mapsolve_eval_kernel, mapsolve_step_kernel (mapsolve.solve)",
+     *MAPSOLVE_SOURCE),
     ("cond", "set_handle_kernel (graph_cond.when)", *COND_SOURCE),
     ("stamp", "stamp_kernel (spans.stamp)", *STAMP_SOURCE),
 )
@@ -3323,13 +3548,14 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     # one nvcc for each source, started together
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         builds = {name: pool.submit(mod.build, verbose=True)
                   for name, mod in (("nn", pallas_nn), ("eigsym", eigsym),
                                     ("svd3", svd3), ("graph_cond", graph_cond),
-                                  ("stamp", spans))}
+                                    ("stamp", spans), ("mapsolve", mapsolve))}
         reports = {name: b.result() for name, b in builds.items()}
-    print(f"kernels build (nn.cu, eigsym.cu, svd3.cu, graph_cond.cu and stamp.cu in parallel): "
+    print(f"kernels build (nn.cu, eigsym.cu, svd3.cu, graph_cond.cu, stamp.cu and mapsolve.cu "
+          f"in parallel): "
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -3350,6 +3576,7 @@ def main() -> int:
                   "graph": lambda: graph_phase(dev),
                   "eig": lambda: eig_kernel_phase(dev),
                   "svd": lambda: svd_kernel_phase(dev, cfg),
+                  "mapsolve": lambda: mapsolve_kernel_phase(dev),
                   "cond": lambda: cond_phase(dev),
                   "stamp": lambda: stamp_phase(dev),
                   "stream-small": lambda: stream_small_phase(dev),

@@ -42,18 +42,20 @@ here, the fallback and the whole keyframe branch with the conds inside it.
               `FrameInfo`, every frame
 
 then the flags (skip, has_prev, is_keyframe, a candidate found, the loop
-accepted, the store compacted, the pose graph's node count, whose bucket
-is the one the PGO ran at) come to the host, the frame's one read: it
+accepted, the store compacted, the scan-to-map solve's iterations, the
+pose graph's node count, whose bucket is the one the PGO ran at) come to
+the host, the frame's one read: it
 decides nothing but the kernel counts, the PGO's solve count
 (`posegraph.solves`) and `FrameInfo`'s unpacking, as the
 counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.  The read also
 brings the device stamps of the frame's regions (`utils.spans`: `frame`,
-`front`, `back`, `mapping` inside it, `log`, and each If region above),
+`front`, `back`, `mapping` inside it and `mapping.solve` inside that,
+`log`, and each If region above),
 written into the same buffer.
 `BatchedStepGraph`'s step is one graph of `front`, the fallback region when
 any session's flags say `skip & has_prev` (solved on all B and kept where
 they say so, `slam._fallback_batched`) and `back`, then the (3, B) flags
-read.
+and the scan-to-map solve's iterations read.
 
 - **Static buffers.** The frame's inputs (`xyz`, `inten`, the timestamp as
   a 0-d tensor, the RANSAC draws `ground_u`) and the whole state live in
@@ -110,7 +112,7 @@ import time
 import torch
 
 from ..config import SlamConfig
-from ..ops import projection
+from ..ops import mapsolve, projection
 from ..utils import graph_cond, spans
 from ..utils.graph_cond import KERNEL_WRAPPERS
 from ..utils.tree import clone_state, donate, generators, leaves, map_leaves
@@ -175,7 +177,9 @@ class Segments:
         self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
         self.outs: dict = {}
         self.kernels: dict[str, list[int]] = {}     # a replay's, outside its regions
-        self.region_kernels: dict[str, dict[str, list[int]]] = {}   # by region
+        # by region, a node's (the nodes of a region are alike: a loop's
+        # iterations)
+        self.region_kernels: dict[str, dict[str, list[int]]] = {}
         self.pool = None
         self.capture_s: dict[str, float] = {}
         self.replays: collections.Counter = collections.Counter()
@@ -184,13 +188,15 @@ class Segments:
         """Capture `fn()` into graph `name` and keep its output.  The hand
         kernels' launches it recorded are taken back from the wrappers'
         counts and kept, those inside each conditional region of `regions`
-        (`graph_cond.when`) apart; a region not named may hold none."""
+        (`graph_cond.when`) apart, by node; a region not named may hold
+        none."""
         t0 = time.perf_counter()
         g = torch.cuda.CUDAGraph()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         before = graph_cond.launch_counts()
         graph_cond.recorded.clear()
+        graph_cond.nodes.clear()
         with graph_cond.capture(g, self.pool):
             self.outs[name] = fn()
         torch.cuda.synchronize(self.device)
@@ -202,9 +208,16 @@ class Segments:
             raise RuntimeError(f"graph {name!r}: hand kernels captured in regions "
                                f"{sorted(stray)} whose replays are not counted")
         inside = {r: graph_cond.recorded.get(r, [0] * len(total)) for r in regions}
-        self.region_kernels[name] = inside
         self.kernels[name] = [t - sum(n[i] for n in inside.values())
                               for i, t in enumerate(total)]
+        per_node = {}
+        for r, n in inside.items():
+            k = max(graph_cond.nodes[r], 1)
+            if any(x % k for x in n):
+                raise RuntimeError(f"graph {name!r}: the {k} nodes of region {r!r} hold "
+                                   f"unlike launches {n}")
+            per_node[r] = [x // k for x in n]
+        self.region_kernels[name] = per_node
         self.graphs[name] = g
         self.capture_s[name] = time.perf_counter() - t0
 
@@ -218,11 +231,11 @@ class Segments:
 
     def count_regions(self, name: str, ran: dict) -> None:
         """Count the launches inside the regions of graph `name`'s last
-        replay that ran (`ran`: region name -> whether it ran, from the
-        flags read after the replay)."""
-        for region, taken in ran.items():
-            if taken:
-                _count(self.region_kernels[name][region])
+        replay that ran (`ran`: region name -> whether it ran, or how many
+        of its nodes' bodies ran, from the flags read after the replay)."""
+        for region, times in ran.items():
+            if times:
+                _count([n * int(times) for n in self.region_kernels[name][region]])
 
     def run(self, name: str, fn):
         """Replay graph `name`; without one, run `fn()` eagerly and (on the
@@ -253,10 +266,11 @@ class FrameGraph:
     docstring).  `state` is the `FusedState` of buffers, read at any time;
     `step` runs a frame and returns its `FrameInfo`."""
 
-    # the flags of the frame's one host read, before its device stamps, and
-    # the pose graph's node count after the frame
+    # the flags of the frame's one host read, before its device stamps: the
+    # scan-to-map solve's iterations (the bodies of its `mapsolve` nodes
+    # that ran) and the pose graph's node count after the frame
     FLAGS = ("skip", "has_prev", "is_keyframe", "sc_found", "loop_found", "compacted",
-             "num_nodes")
+             "map_iters", "num_nodes")
 
     # the frame graph's conditional regions that hold hand kernels, counted
     # where the flags read after a replay says they ran
@@ -404,9 +418,10 @@ class FrameGraph:
             spans.mark("frame", True)
         b = self._bout
         flags = torch.stack([skip, has_prev, is_kf, b.sc_found, b.loop_found, b.compacted])
-        n = len(self.FLAGS) - 1
+        n = len(self.FLAGS) - 2
         self._read[:n].copy_(flags)
-        self._read[n].copy_(self.state.backend.graph.num_nodes)
+        self._read[n].copy_(out.map_iterations)
+        self._read[n + 1].copy_(self.state.backend.graph.num_nodes)
         return fr, out, self._read
 
     def _warm_up(self, fr: slam.FrontOutput, out: slam.SlamOutput) -> None:
@@ -464,7 +479,7 @@ class FrameGraph:
         with rec.span("graph.read"):
             read = read.tolist()        # the frame's one host read
         with rec.span("graph.unpack"):
-            *flags, nodes = read[:len(self.FLAGS)]
+            *flags, map_iters, nodes = read[:len(self.FLAGS)]
             skip, has_prev, is_kf, found, accept, compacted = map(bool, flags)
             ran = {"fallback": skip and has_prev, "keyframe": is_kf,
                    "compact": compacted, "verify": found, "accept": accept,
@@ -473,7 +488,7 @@ class FrameGraph:
             size = posegraph.bucket(nodes, self.cfg.loop.max_keyframes)
             ran.update({r: solved and r == f"pgo.{size}" for r in self._pgo_regions})
             if replayed:
-                self.segments.count_regions("frame", ran)
+                self.segments.count_regions("frame", {**ran, mapsolve.REGION: map_iters})
                 if solved:
                     posegraph.solves[size] += 1
             self.last_flags = ran
@@ -489,7 +504,7 @@ class FrameGraph:
                 self._warm_up(fr, out)
                 warmups[key] = self.warmup_s
             self.segments.capture("frame", self._frame,
-                                  self.REGIONS + self._pgo_regions)
+                                  self.REGIONS + self._pgo_regions + (mapsolve.REGION,))
             self.calibrate()
         return info
 
@@ -498,9 +513,9 @@ class BatchedStepGraph:
     """B sessions' frames (`slam.slam_step_batched`) through one replayed
     graph: `front`, the fallback region when any session's flags say `skip
     & has_prev` (solved on all B and kept where they say so,
-    `slam._fallback_batched`), `back`; then the flags read ((3, B), the
-    step's one host read).  The batched step has no keyframe branch and no
-    log.  `state` is the batched
+    `slam._fallback_batched`), `back`; then the flags read ((3, B) and the
+    scan-to-map solve's iterations, the step's one host read).  The
+    batched step has no keyframe branch and no log.  `state` is the batched
     `SlamState` of buffers (its sessions seeded `seeds`, as
     `slam.init_batched_state` seeds them), `gen` a tuple of B generators,
     whose RANSAC draws are taken outside the graphs into the `ground_u`
@@ -540,19 +555,22 @@ class BatchedStepGraph:
         self._fallback_ran = True
         donate(self._fb, slam._fallback_batched(self.state, fr, self.cfg))
 
-    def _back(self, fr: slam.FrontOutput) -> torch.Tensor:
+    def _back(self, fr: slam.FrontOutput) -> tuple[torch.Tensor, torch.Tensor]:
         new, out = slam.back(self.state, fr, self._fb, self._ground_u, None, self.cfg)
         donate(self.state, new)
         raw, self._layout = pack_info(out)
-        return raw
+        return raw, out.map_iterations
 
-    def _step(self) -> tuple[slam.FrontOutput, torch.Tensor]:
-        """`front`, the fallback region (when any session takes it), `back`."""
+    def _step(self) -> tuple[slam.FrontOutput, torch.Tensor, torch.Tensor]:
+        """`front`, the fallback region (when any session takes it), `back`;
+        the packed output and what the host reads: the (3, B) flags, then
+        the scan-to-map solve's iterations (its slowest session's)."""
         fr = self._front()
         with graph_cond.when((fr.flags[0] & fr.flags[1]).any(), "fallback") as taken:
             if taken:
                 self._fallback(fr)
-        return fr, self._back(fr)
+        raw, its = self._back(fr)
+        return fr, raw, torch.cat([fr.flags.flatten().to(torch.int32), its.amax()[None]])
 
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamps,
              ground_u: torch.Tensor | None = None) -> slam.SlamOutput:
@@ -572,14 +590,17 @@ class BatchedStepGraph:
             self._ground_u.copy_(ground_u)
 
         replayed = "step" in self.segments.graphs
-        fr, raw = self.segments.replay("step") if replayed else self._step()
-        host = [slam.HostFlags(*f) for f in zip(*fr.flags.tolist())]   # the one host read
+        fr, raw, read = self.segments.replay("step") if replayed else self._step()
+        *flags, map_iters = read.tolist()       # the one host read
+        B = len(flags) // 3
+        host = [slam.HostFlags(*map(bool, flags[b::B])) for b in range(B)]
         fell_back = any(h.skip and h.has_prev for h in host)
         if replayed:
-            self.segments.count_regions("step", {"fallback": fell_back})
+            self.segments.count_regions("step", {"fallback": fell_back,
+                                                 mapsolve.REGION: map_iters})
         out = unpack_info(raw.clone(), self._layout)._replace(host=host)
         if not replayed and self.segments.on_card:
             if not self._fallback_ran:
                 warm_up(lambda: slam._fallback_batched(self.state, fr, self.cfg), self.state)
-            self.segments.capture("step", self._step, ("fallback",))
+            self.segments.capture("step", self._step, ("fallback", mapsolve.REGION))
         return out

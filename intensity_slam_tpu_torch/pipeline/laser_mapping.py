@@ -21,7 +21,7 @@ geometric-only configuration (`pipeline.geometric_slam`):
 Host reads per step: the two pose solves' loop tests (one per
 Gauss-Newton iteration; under a CUDA graph's capture a conditional node
 each, `solver.solve_pose`); nothing else (`fit_lines`' `eigsym.eigh` reads no
-status back).  The prior block's Jacobian is `mapping._pose_prior`'s central
+status back).  The prior block's Jacobian is `mapsolve.pose_prior`'s central
 difference (the reference differentiates `solver.pose_prior` in forward
 mode; the numbers agree within 2e-5).
 """
@@ -33,12 +33,12 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
-from ..ops import grid_hash, solver
+from ..ops import grid_hash, mapsolve, solver
 from ..ops.curvature import FeatureClouds
 from ..ops.voxel import voxel_downsample
 from ..utils import index, se3
 from ..utils.se3 import Pose
-from .mapping import _fit_planes, _pose_prior
+from .mapping import _fit_planes
 from .mapping import fit_lines as _fit_lines
 
 # Weak uniform anchor to the odometry prediction: corner + surf residuals
@@ -92,7 +92,7 @@ def laser_mapping_step(
         fc.less_sharp, fc.less_sharp_mask, mc.corner_voxel, mc.max_query_points // 2)
     s_pts, s_mask = voxel_downsample(
         fc.less_flat, fc.less_flat_mask, mc.ground_voxel, mc.max_query_points)
-    prior_fn = _pose_prior(prior, index.constant(_PRIOR_SQRT_INFO, device=dev))
+    prior_fn = mapsolve.pose_prior(prior, index.constant(_PRIOR_SQRT_INFO, device=dev))
 
     pose = prior
     for _ in range(2):

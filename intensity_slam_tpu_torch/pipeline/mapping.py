@@ -23,8 +23,12 @@ last W mapped frames and adds point-to-point residuals for matches that pass
 the reference's gates.  Defaults match the shipped yaml (`spot.yaml:46`:
 window 0 = inert).
 
+The pose solve is `ops.mapsolve.solve`: two hand-written CUDA kernels an
+iteration on the card, `solver.solve_pose` over the residual closures on
+the CPU.
+
 Host reads per step: the pose solve's own (one per iteration, none while
-a CUDA graph is being captured, `solver.solve_pose`); nothing else (the line
+a CUDA graph is being captured, `ops.mapsolve`); nothing else (the line
 fit's eigensolver, `ops.eigsym`, reads no status).  The JAX package's
 `lax.cond` on the map's point count (the capacity policy, `evict_policy`)
 is a masked pass eagerly: `grid_hash.evict_far(..., when=over)` runs every
@@ -46,9 +50,9 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import features as feat_ops
-from ..ops import eigsym, grid_hash, solver
+from ..ops import eigsym, grid_hash, mapsolve
 from ..ops.voxel import voxel_downsample
-from ..utils import graph_cond, index, se3
+from ..utils import graph_cond, index, se3, spans
 from ..utils.se3 import Pose
 
 
@@ -74,6 +78,7 @@ class MappingOutput(NamedTuple):
     num_corner_residuals: torch.Tensor  # () int32 line fits used
     solve_cost: torch.Tensor
     converged: torch.Tensor
+    solve_iterations: torch.Tensor      # () int32 pose-solve iterations
     map_points: torch.Tensor    # () int32 ground-map size
     num_window_residuals: torch.Tensor  # () int32 sliding-window BA matches used
     # the voxel-downsampled SENSOR-frame clouds this step inserted (the
@@ -149,37 +154,6 @@ def _window_residuals(
     w = mask * mc.window_sqrt_info**2
     return (src.reshape(lead + (-1, 3)), dst_map.reshape(lead + (-1, 3)),
             w.reshape(lead + (-1,)), torch.sum(mask.flatten(-2), dim=-1).to(torch.int32))
-
-
-def _pose_prior(prior: Pose, sqrt_info: torch.Tensor) -> solver.ResidualFn:
-    """`solver.pose_prior` with a `jacobian`, so that the stack it joins
-    keeps the analytic Jacobians of its thousands of point residuals (a
-    stack with a part that has none is differentiated as a whole, in forward
-    mode).
-
-    The Jacobian of the one 6-dim block, d log(prior^-1 o p o exp(xi)) / d xi
-    at 0, is a central difference in float64 over a batch of 12 poses (step
-    1e-6: truncation ~1e-12, rounding ~1e-10, both far below float32's
-    resolution; tests/test_torch_mapping.py holds it to `jacfwd`).
-    `torch.func.jacfwd` gives the same numbers, but its per-operation host
-    overhead made this one block the largest cost of the whole step
-    (PERF.md)."""
-    fn = solver.pose_prior(prior, sqrt_info)
-    inv_prior = se3.pose_map(lambda a: a[..., None, :],
-                             se3.inverse(Pose(prior.q.double(), prior.t.double())))
-    h = 1e-6
-
-    def jacobian(p: Pose) -> torch.Tensor:
-        eye = torch.eye(6, dtype=torch.float64, device=p.t.device) * h
-        moved = se3.retract(se3.pose_map(lambda a: a.double()[..., None, :], p),
-                            torch.cat([eye, -eye]))
-        r = se3.se3_log(se3.compose(inv_prior, moved))           # (12, 6)
-        J = ((r[..., :6, :] - r[..., 6:, :]) / (2.0 * h)).transpose(-1, -2).to(
-            p.t.dtype)                                           # (6, 6)
-        return (sqrt_info[..., :, None] * J)[..., None, :, :]
-
-    fn.jacobian = jacobian
-    return fn
 
 
 def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -323,17 +297,12 @@ def mapping_step(
         index.constant(mc.prior_sqrt_info_corner, device=dev),
         index.constant(mc.prior_sqrt_info, device=dev),
     )
-    residual_sets = [
-        (solver.point_to_plane_nd(q_pts, n, d, w * enough.float()[..., None]), 1),
-        (_pose_prior(prior, prior_sqrt_info), 6),
-    ]
+    lines = None
     if mc.use_corner_residuals:
-        residual_sets.append(
-            (solver.point_to_line(c_pts, la, lb,
-                                  w_c * corner_enough.float()[..., None]), 3)
-        )
+        lines = (c_pts, la, lb, w_c * corner_enough.float()[..., None])
     # sliding-window visual BA residuals (`:295-361`); the shipped window
     # size 0 costs nothing
+    points = None
     if mc.sliding_window_size > 0:
         if features is None:
             raise ValueError(
@@ -343,16 +312,15 @@ def mapping_step(
         ba_src, ba_dst, ba_w, num_window = _window_residuals(
             state, features, prior, cfg
         )
-        residual_sets.append((solver.point_to_point(ba_src, ba_dst, ba_w), 3))
+        points = (ba_src, ba_dst, ba_w)
     else:
         num_window = torch.zeros(lead, dtype=torch.int32, device=dev)
-    res = solver.solve_pose(
-        prior,
-        solver.concat_residuals(*residual_sets),
-        iters=mc.gn_iters,
-        robust="huber",
-        robust_scale=0.2,
-    )
+    # the `mapping.solve` device region where a frame graph stamps
+    with spans.region("mapping.solve"):
+        res = mapsolve.solve(
+            prior, prior_sqrt_info, (q_pts, n, d, w * enough.float()[..., None]),
+            lines, points, iters=mc.gn_iters, robust_scale=0.2,
+        )
     # keep the prior when the map is empty / not enough structure
     do_solve = state.initialized & (enough | (num_window >= 16))
     pose = se3.pose_where(do_solve, res.pose, prior)
@@ -409,6 +377,7 @@ def mapping_step(
         num_corner_residuals=num_corner,
         solve_cost=res.final_cost,
         converged=res.converged,
+        solve_iterations=res.iterations,
         map_points=ground_map.num_points,
         num_window_residuals=num_window,
         ground_ds=q_pts,

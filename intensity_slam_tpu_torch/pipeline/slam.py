@@ -94,6 +94,7 @@ class SlamOutput(NamedTuple):
     ground_ds_mask: torch.Tensor  # (Pg,)
     corner_ds: torch.Tensor       # (Pc, 3)
     corner_ds_mask: torch.Tensor  # (Pc,)
+    map_iterations: torch.Tensor  # () int32 scan-to-map solve iterations
     host: HostFlags             # a list of B HostFlags from the batched step
 
 
@@ -277,6 +278,7 @@ def back(state: SlamState, fr: FrontOutput, fallback_delta: Pose,
         ground_ds_mask=map_out.ground_ds_mask,
         corner_ds=map_out.corner_ds,
         corner_ds_mask=map_out.corner_ds_mask,
+        map_iterations=map_out.solve_iterations,
         host=host,
     )
     return new_state, out
@@ -343,5 +345,6 @@ def run_sequence(xyz_seq: torch.Tensor, inten_seq: torch.Tensor, times,
         desc=empty.to(torch.int32), desc_valid=empty.to(torch.bool),
         feat_xyz=empty, ground_ds=empty, ground_ds_mask=empty.to(torch.bool),
         corner_ds=empty, corner_ds_mask=empty.to(torch.bool),
+        map_iterations=stack(lambda o: o.map_iterations),
         host=[o.host for o in outs],
     )

@@ -50,8 +50,10 @@ making them, and a graph owner adds them back on every replay
 (`pipeline.frame_graph.Segments`).  Inside a region they happen only on the
 replays that take it, so `when` keeps, by region name, the launches
 captured inside each region outside the regions nested in it (`recorded`;
-a node's own handle kernel counts in the region around the node), for the
-owner to add where the host learns that the region ran.  A region opened
+a node's own handle kernel counts in the region around the node), and the
+nodes of each region (`nodes`: a loop's iterations open a node each under
+one name), for the owner to add a node's share for each body that the host
+learns ran.  A region opened
 with `kernels=False` (a solver's iteration, a PCM growth step, whose count
 the host never reads) raises at capture if a hand kernel was captured
 inside it.  `set_handle.launches` counts the handle kernel.
@@ -71,7 +73,7 @@ import weakref
 
 import torch
 
-from ..ops import eigsym, pallas_nn, svd3
+from ..ops import eigsym, mapsolve, pallas_nn, svd3
 from . import nvcc, spans
 from .tree import clone_state, donate
 
@@ -93,6 +95,7 @@ _timing: list = []      # seconds of the regions nested in each forced one
 
 ran: collections.Counter = collections.Counter()     # blocks run on a host read
 recorded: dict[str, list[int]] = {}     # launches captured in each region
+nodes: collections.Counter = collections.Counter()   # nodes captured by region
 
 
 def build(verbose: bool = False) -> str:
@@ -131,10 +134,11 @@ def set_handle(pred: torch.Tensor, body_stream: torch.cuda.Stream) -> None:
 
 set_handle.launches = 0
 
-# the hand kernels' wrappers, each with its `launches` count (the handle
-# kernel last)
+# the hand kernels' wrappers (or their module), each with its `launches`
+# count (the handle kernel last)
 KERNEL_WRAPPERS = (eigsym.eigh, eigsym.eigvalsh, pallas_nn.pack_targets,
-                   pallas_nn.nearest_neighbor_packed, svd3.svd3, spans.stamp, set_handle)
+                   pallas_nn.nearest_neighbor_packed, svd3.svd3, mapsolve, spans.stamp,
+                   set_handle)
 
 
 def launch_counts() -> list[int]:
@@ -239,6 +243,7 @@ def when(pred: torch.Tensor, name: str, kernels: bool = True):
                            f"replays the host does not count: {own}")
     total = recorded.get(name, [0] * len(own))
     recorded[name] = [t + n for t, n in zip(total, own)]
+    nodes[name] += 1
 
 
 def cond(pred: torch.Tensor, name: str, fn, default):

@@ -91,13 +91,14 @@ LIBRARY = os.path.join(nvcc.BUILD_DIR, "libisl_stamp.so")
 # the PGO's buckets (`posegraph.regions`, inside `accept`) of up to 1024
 # keyframe slots: a larger bucket is not stamped
 PGO_BUCKETS = ("pgo.128", "pgo.256", "pgo.512", "pgo.1024")
-DEVICE = ("frame", "front", "fallback", "back", "mapping", "keyframe", "compact",
-          "verify", "accept", "rebuild", "log", *PGO_BUCKETS)
+DEVICE = ("frame", "front", "fallback", "back", "mapping", "mapping.solve", "keyframe",
+          "compact", "verify", "accept", "rebuild", "log", *PGO_BUCKETS)
 HOST = ("dispatch", "stream.upload", "stream.upload_wait", "stream.decode",
         "graph.inputs", "graph.launch", "graph.read", "graph.unpack", "stream.spill",
         "stream.pose", "stream.caller")
 PARENT = {"frame": None, "front": "frame", "fallback": "frame", "back": "frame",
-          "mapping": "back", "keyframe": "frame", "compact": "keyframe",
+          "mapping": "back", "mapping.solve": "mapping", "keyframe": "frame",
+          "compact": "keyframe",
           "verify": "keyframe", "accept": "verify", "rebuild": "keyframe", "log": "frame",
           **{b: "accept" for b in PGO_BUCKETS},
           "dispatch": None, "stream.upload_wait": "stream.upload",

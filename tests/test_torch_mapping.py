@@ -47,6 +47,7 @@ from intensity_slam_tpu.pipeline import mapping as JM
 from intensity_slam_tpu.pipeline import slam as JS
 from intensity_slam_tpu.utils import se3 as J3
 from intensity_slam_tpu_torch import interop
+from intensity_slam_tpu_torch.ops import mapsolve as TMS
 from intensity_slam_tpu_torch.ops import projection as TP
 from intensity_slam_tpu_torch.pipeline import mapping as TM
 from intensity_slam_tpu_torch.pipeline import slam as TS
@@ -261,7 +262,7 @@ def test_pose_prior_jacobian_matches_forward_mode():
     jprior = J3.se3_exp(jnp.asarray(xi0))
     jp = J3.retract(jprior, jnp.asarray(dxi))
     tprior, tp = _tpose(jprior), _tpose(jp)
-    fn = TM._pose_prior(tprior, _t(si))
+    fn = TMS.pose_prior(tprior, _t(si))
     J = fn.jacobian(tp)
     base = TSol.pose_prior(tprior, _t(si))
     J_ad = jacfwd(lambda xi: base(T3.retract(tp, xi))[0])(torch.zeros(6))

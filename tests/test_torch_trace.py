@@ -25,7 +25,7 @@ flags say.
 - The ring keeps the newest `capacity` frames.
 - A `metrics.device_trace` trace of two more frames holds the `stream.*`
   and `graph.*` phases by name.
-- Every reader of the seven new per-layer metrics gives a number on the
+- Every reader of the eight `program_span` metrics gives a number on the
   recorded run, and None where the window holds no frame.
 
 On the card (`-m cuda`): stamps rise through the frame, an untaken If body
@@ -53,8 +53,8 @@ torch.set_num_threads(1)
 PLACES = (0, 1, 0, 0, 0)        # A, B, A, A, A
 FLAT = 3                        # the frame whose intensity is flat
 READERS = ("frame.device_ms_p50", "frame.idle_ms_p50", "device.idle_share",
-           "frontend.device_ms_p50", "mapping.device_ms_p50", "keyframe.device_ms_p50",
-           "pgo.device_ms_p50")
+           "frontend.device_ms_p50", "mapping.device_ms_p50", "mapping.solve_device_ms_p50",
+           "keyframe.device_ms_p50", "pgo.device_ms_p50")
 
 
 def _cfg():
