@@ -65,9 +65,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    2048-point keyframe clouds, 1024 keyframes, so each PGO solve is the
    dense 6144-dim one, two voxel maps of 131 073 cells) and only the two
    recency exclusions shortened for a 38-frame sequence, over the
-   out-and-back of tests/test_loop_closure.py rendered on the card.  Both
-   kernels must launch on this path (1 pack and 33 searches per ICP
-   verification).  Checked: at least 8 keyframes, one accepted loop from the
+   out-and-back of tests/test_loop_closure.py rendered on the card.
+   Checked: at least 8 keyframes, one accepted loop from the
    return leg to the start, at least 16 plane residuals on every frame after
    the first, the ground map growing on every frame and changed by the
    rebuild at the accepted loop only, a finite 38-row `trajectory()` whose
@@ -97,14 +96,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    If nodes (`cond`, also `--phase cond`): one point-to-point solve of
    1024 points captured once and replayed on three problems whose early
    exits differ, each replay bit-equal to its eager early exit with the
-   same iterations, the capture's replay time beside a fixed-form
-   capture's on the problem that runs longest (what the chain costs); the
-   handle kernel (`set_handle_kernel`, `csrc/graph_cond.cu`) held against
+   same iterations, and the replay's time on the problem that runs
+   longest; the handle kernel (`set_handle_kernel`, `csrc/graph_cond.cu`) held against
    the plain choice of the body (run, skipped, run) and timed as one node
    of a chain of 100 skipped ones beside the host read it replaces.  Then
    the stamp kernel (`stamp_kernel`, `utils/spans.py`, also `--phase
-   stamp`) in a buffer laid out as the frame graph's read (6 flags, then
-   the 22 stamp slots) against its plain version: the slots from
+   stamp`) in a buffer laid out as the frame graph's read (the flags, then
+   the stamp slots) against its plain version: the slots from
    `clear_from` zeroed, the others and the flags kept, the stamp inside the
    host's bracket around its launch once mapped through a fresh
    calibration, within the calibration's error; `%globaltimer`'s step (the
@@ -113,37 +111,36 @@ Phases (any failure exits non-zero before the result lines are printed):
    the slice at full width through `SlamSystem` (a timed run, a run with
    host syncs counted and solver iterations read after every frame, and
    the first 6 frames again with three non-keyframe frames traced by
-   `torch.profiler`: a trace costs seconds; the same traced frames with
-   the solves captured in the fixed form) against two runs of the eager
+   `torch.profiler`: a trace costs seconds) against two runs of the eager
    `fused_step` loop: the same keyframes, skips and loop, positions within
    the eager runs' spread, the odometry's and the mapping's solver
    iterations equal to eager on every frame, every frame after the first
    (which runs eagerly, warms the keyframe regions up and captures the
    graph) replayed, keyframes and the accepted loop included, with exactly
    one host sync (the flags read in `FrameGraph.step`) and one graph
-   replay, the PGO solved once an accepted loop at its smallest node
-   bucket (`posegraph.solves`), and on the traced frames (three
-   non-keyframes, one keyframe, the accepted loop) one
+   replay, the PGO's region of its smallest node bucket stamped on the
+   device's clock (`utils/spans.py`) exactly on the accepted loops, where
+   `FrameGraph.last_flags` says it ran, and on the traced frames
+   (three non-keyframes, one keyframe, the accepted loop) one
    `cudaGraphLaunch` call and at most 8 other launch calls (input copies,
-   timestamp fill, draws, the flags read, `FrameInfo` clone), the
-   launches the wrappers counted against the kernels in the trace by name,
-   every kernel of the path launched; printed: ms per non-keyframe, per
-   keyframe and at the accepted loop eager and graphed, device us per
-   non-keyframe frame eager, graphed and graphed in the fixed form and of
-   the traced keyframe, capture seconds and the warm-up's seconds by
-   region (shared by later owners of the same configuration in the
-   process: `frame_graph.warmups`), If nodes a replay and on each keyframe
-   replay, peak memory.  Then the slice with the store cut to 8 keyframes
+   timestamp fill, draws, the flags read, `FrameInfo` clone) and the hand
+   kernels in the trace, counted by name, against the frame's flags: at
+   most 2 + 2 x the scan-to-map solve's iterations of its two kernels, and
+   exactly that on one frame at least, the ICP's kernels (`nn`, `pack`,
+   `svd3`) only on a frame that verified a candidate, and every hand
+   kernel of the path in the traces; printed: each traced frame's hand
+   kernels by name, ms per non-keyframe, per keyframe and at the accepted
+   loop eager and graphed, device us per non-keyframe frame eager and
+   graphed and of the traced keyframe, capture seconds and the warm-up's
+   seconds by region (shared by later owners of the same configuration in
+   the process: `frame_graph.warmups`), peak memory.  Then the slice with the store cut to 8 keyframes
    (`max_keyframes`), so that its ninth keyframe compacts the store inside
    the replayed graph: the same decisions and compactions as its eager
    `fused_step` run, the compact region run by the flags read exactly on
    the compacting frames, each a replay, positions and the log within the
    eager spread.  Then 8 constant-intensity frames at full width: the fallback
    region taken in the replays, the eager run's decisions and solver
-   iterations, and two traced frames' launches against their trace.
-   Kernel launches are counted over the timed graph run (`graph`; a
-   replay counts the launches its capture recorded outside the regions
-   and inside those that ran);
+   iterations, and two traced frames' hand kernels held as above;
 7. stream-small: `StreamingRunner` at small_test_config over a 12-frame
    corridor scan log (the same ground-RANSAC draws handed to every run):
    the CPU and the card take the same keyframes, skips and loops, `run` and
@@ -162,24 +159,23 @@ Phases (any failure exits non-zero before the result lines are printed):
    frame, against two runs of the eager `geo_slam_step` loop: ATE and end
    error under a quarter of the motion (tests/test_geometric_slam.py's
    bound), the eager runs' residual counts on every frame, positions
-   within the eager runs' spread, and after the capture 0 host syncs and
-   one replay a step.  Printed: ms a step graphed and eager, device us a
+   within the eager runs' spread, after the capture 0 host syncs and
+   one replay a step, and both eigensolver kernels (`eigh`, `eigvalsh`) in
+   the `torch.profiler` traces of three graphed steps.  Printed: ms a step graphed and eager, device us a
    step (`torch.profiler`, three steps), capture seconds, peak memory, the
-   eager stage rows.  Kernel launches are counted over `run_sequence`
-   (`geoslam`);
+   eager stage rows;
 10. stream: bench.py's 420-frame circuit (os0_64_config, circuit_world with
    its textureless span, circuit_trajectory at 0.4 m a frame) rendered on
    the card into a ~440 MB scan log in a temporary directory (deleted at
    the end) and run once through `StreamingRunner(...).run(log)` in wire
    mode.  Checked: 420 frames, an accepted loop from the second lap to the
    first, 420 live TUM rows, no dropped pose write, a finite 420-row
-   `trajectory()` within 1.5 m ATE RMSE of the rendered poses, both kernels
-   launched, no host sync of the dispatch thread outside `fused_step`'s
+   `trajectory()` within 1.5 m ATE RMSE of the rendered poses, no host sync of the dispatch thread outside `fused_step`'s
    modules, and exactly one on every frame after the first (the flags
    read: keyframes and accepted loops replay the graph too).  Printed:
    keyframes, skips, loops, ms per frame and at each accepted loop, the
    warm-up's and the capture's seconds, scans/s, the syncs by call site,
-   peak memory, kernel launches;
+   peak memory;
 11. refine: the distributed back-end (`parallel/`) at full width, on the
    circuit's keyframe store left by the stream phase (K = 1024 keyframe
    slots x F = 1024 features: 1 048 576 BA observation and landmark slots, a
@@ -187,8 +183,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    a one-rank NCCL process group on the card (`shard_backend_state` first),
    poses within 1e-3 m of each other, the BA's median landmark within 1e-3 m
    (`LANDMARK_MEDIAN_TOL_M`) and its final cost within 1e-3 relative, the BA
-   cost not raised, BA observations found, no kernel launched inside
-   `refine`; printed: the refined trajectory's ATE beside the online one,
+   cost not raised, BA observations found, no hand kernel in the
+   `torch.profiler` trace of one `refine`; printed: the refined trajectory's ATE beside the online one,
    host ms per stage and for the whole `refine`, peak memory, host syncs by
    call site; (b) the slice's out-and-back at full width in the
    deferred-solve mode (`online_pgo=False`) through `SlamSystem(cfg,
@@ -201,8 +197,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    2e-2 m, its final cost within 1e-3 relative), the end error after the
    refine under 1 m on both, and on the (deterministic) CPU run the refine
    cutting the ATE below 0.9 of what it was; the card's ATE before and after
-   is printed. Kernel launches are counted over (b) and over (c)'s card run,
-   each from 0. The NCCL group is destroyed at the end;
+   is printed. The NCCL group is destroyed at the end;
 12. tools: the user-facing and accuracy tools at full width, called
    in-process: the README's quick start `tools/torch_replay.py --frames 40
    --check-ate` (the `slam` pipeline) and the same 40 frames through
@@ -211,8 +206,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    full-width scans, read back through `ScanLog` bit-equal;
    `tools/torch_loop_eval.py`'s `run_one` on the aliased corridor
    (os0_64_config, every loop channel, sensor noise seed 0, 320 frames),
-   which must close at least one correct loop (its precision printed).
-   Kernel launches are counted over the whole phase (`tools`);
+   which must close at least one correct loop (its precision printed);
 13. measure: the measurement and scale-out tools at full width, each
    through its `main(argv)` on the card with its JSON in a temporary
    directory: `torch_bench_full --frames 32` (front end, back end,
@@ -230,11 +224,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    `torch_scaling_projection --reps 2` and `torch_multiproc_product` (one
    NCCL rank, product scale: 1024 nodes and 200 loop edges, the PGO and
    the refine within 1e-3 m of the dense and the local solves, the ATE
-   lowered).  Times are printed, not held.  Kernel launches are counted
-   over the whole phase (`measure`): at this depth no tool reaches a loop
-   candidate (a 32-frame corridor, the circuit's first lap), so the NN
-   kernels launch 0 times there; the kernel phase holds them and the slice,
-   stream, refine and tools paths launch them;
+   lowered).  Times are printed, not held;
 14. multisession: the batched step at full width (os0_64_config, 64x1024)
    through `frame_graph.BatchedStepGraph` (one graph: `front`, the
    fallback under an If node, `back`; the (3, B) flags read after it):
@@ -261,14 +251,15 @@ Phases (any failure exits non-zero before the result lines are printed):
    iterations may differ between the three); the device kernels of the
    sixth step printed by name, B = 8 against B = 1, and held under 1.5
    times B = 1's (a loop over the sessions would launch 8 times as many);
-   and through the graphs: one host sync a step, no solver loop test.
+   and through the graphs: one host sync a step, no solver loop test, and
+   in the trace of each graphed run's last step the scan-to-map solve's
+   two kernels at most 2 + 2 x its slowest session's iterations, exactly
+   that on one run at least (the If nodes' bodies hold them), and the
+   eigensolver's `eigvalsh` kernel.
    Printed, not held: ms a step, total scans/s and the busy share of a
-   traced step at B = 1 and 8, eager and graphed, and at B = 8 graphed
-   with the solves captured in the fixed form; peak memory.  Then
+   traced step at B = 1 and 8, eager and graphed; peak memory.  Then
    `tools/torch_scaling_multisession.py --batches 1,8 --frames 12 --warm 4`
-   (graphed, its eager rows beside).  Kernel launches are counted over the
-   graphed staggered B = 8 run (`multisession`): the step reaches no loop
-   candidate, so the NN kernels launch 0 times.
+   (graphed, its eager rows beside).
 
 Every frame runs the fused step (through `FrameGraph` wherever a phase uses
 `SlamSystem` or `StreamingRunner`): `slam_step` (intensity odometry,
@@ -277,7 +268,9 @@ RANSAC, scan-to-map), on a keyframe `loop.keyframe_core` with the
 scan-to-map pose, at an accepted loop the correction feedback and the map
 rebuild, and the ring-log append.
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (with each kernel's
+launches in the traces of the graph, geoslam, refine and multisession
+phases); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
     python3 chip_smoke.py --phase NAME
@@ -305,7 +298,6 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import bz2
-import functools
 import importlib
 import json
 import math
@@ -986,25 +978,6 @@ def mapsolve_kernel_phase(dev) -> dict:
                 iterations_equal=equal, cases=len(calls))
 
 
-# the hand kernels' wrappers (or their module) by the key of their record
-# (`KERNELS`)
-WRAPPERS = {"nn": pallas_nn.nearest_neighbor_packed, "pack": pallas_nn.pack_targets,
-            "eigh": eigsym.eigh, "eigvalsh": eigsym.eigvalsh, "svd3": svd3.svd3,
-            "mapsolve": mapsolve, "cond": graph_cond.set_handle, "stamp": spans.stamp}
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
-
-
-def read_launches() -> dict:
-    """Each kernel's launches since `reset_launches` (a graph replay adds
-    the launches its capture recorded outside its conditional regions, and
-    inside those that ran: `graph_cond.KERNEL_WRAPPERS`)."""
-    return {key: w.launches for key, w in WRAPPERS.items()}
-
-
 def decisions(r: dict):
     return (list(r["frames"]),
             [(k["frame"], k["candidate"], k["accepted"], k["loop_idx"]) for k in r["kfs"]])
@@ -1167,7 +1140,7 @@ def state_bytes(system) -> tuple[int, int]:
     return maps, store
 
 
-def slice_phase(dev) -> dict:
+def slice_phase(dev) -> None:
     cfg = slice_config(config.SlamConfig())
     traj = loop_trajectory()
     world = synthetic.corridor_world(device=dev)
@@ -1178,9 +1151,7 @@ def slice_phase(dev) -> dict:
     # warm-up: one whole run (library loads, solver and autodiff set-up)
     run_system(cfg, xyz, inten, dev)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     r = run_system(cfg, xyz, inten, dev)
-    launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # the same frames through the eager step (no graphs) with each stage
     # synchronized and timed (a synchronize cannot be captured)
@@ -1188,10 +1159,7 @@ def slice_phase(dev) -> dict:
         rt = run_fused(cfg, xyz, inten, dev)
     # and with every host sync counted (the sync debug mode's warnings slow
     # the host, so this run is not timed)
-    reset_launches()
     rs = run_system(cfg, xyz, inten, dev, count_syncs=True)
-    check(read_launches() == launches,
-          "second run launched the kernel another number of times")
     check(decisions(rs) == decisions(r) == decisions(rt),
           "a repeated run took other decisions")
     system = r["system"]
@@ -1216,8 +1184,7 @@ def slice_phase(dev) -> dict:
               f"{k['loop_idx']}, icp fitness {k['fitness']:.6g}, "
               f"{'accepted' if k['accepted'] else 'rejected'}")
     print(f"  candidates {len(cands)}, accepted loops {len(acc)}, loop table "
-          f"{[(a, b) for a, b, _ in system.loops]}, nn kernel launches "
-          f"{launches['nn']}, pack kernel launches {launches['pack']}")
+          f"{[(a, b) for a, b, _ in system.loops]}")
     print(f"  plane residuals per frame {r['plane']}")
     print(f"  ground map points after each frame's insert {r['map_points']}")
     print(f"  trajectory: {r['traj'].shape[0]} rows, end {r['traj'][-1].round(3).tolist()} "
@@ -1242,8 +1209,6 @@ def slice_phase(dev) -> dict:
           f"accepted loops: {acc}")
     check(acc[0]["frame"] > 14 + 8 and acc[0]["loop_idx"] <= 4,
           "the loop does not join the return leg to the start")
-    check(launches["nn"] >= 33, f"nn kernel launched {launches['nn']} times on the slice")
-    check(launches["pack"] >= 1, "pack kernel was not launched on the slice")
     check(all(k["fitness"] < cfg.loop.icp_fitness_score for k in acc),
           "an accepted loop above the fitness gate")
     check(all(p >= 16 for p in r["plane"][1:]),
@@ -1257,7 +1222,6 @@ def slice_phase(dev) -> dict:
     check(r["traj"].shape == (n, 3) and bool(torch.isfinite(
         torch.from_numpy(r["traj"])).all()), "trajectory is not 38 finite rows")
     check(end_err < 0.5, f"trajectory ends {end_err:.3f} m from the rendered end")
-    return dict(launches=launches)
 
 
 SLAM_STAGES = [(slam.odometry, "odometry_step"),
@@ -1472,9 +1436,7 @@ def stream_phase(dev) -> dict:
             runner = stream.StreamingRunner(cfg, traj_path=tum, device=dev)
             _sync_untracked(dev)
             torch.cuda.reset_peak_memory_stats()
-            reset_launches()
             r = run_stream(runner, log, count_syncs=True)
-            launches = read_launches()
             peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
             gt = torch.from_numpy(np.stack([log[k].gt_t for k in range(n)]))
             overhead = runner_against_process(cfg, log, dev, tmp)
@@ -1508,8 +1470,7 @@ def stream_phase(dev) -> dict:
               f"{k['loop_idx']} (frame {kf_frame.get(k['loop_idx'])}), icp fitness "
               f"{k['fitness']:.6g}, {'accepted' if k['accepted'] else 'rejected'}, "
               f"{1e3 * r['t_frame'][k['frame']]:.3f} ms")
-    print(f"  loop table {runner.loops}; the second lap starts at frame {lap}; "
-          f"nn kernel launches {launches['nn']}, pack kernel launches {launches['pack']}")
+    print(f"  loop table {runner.loops}; the second lap starts at frame {lap}")
     print(f"  trajectory(): {tuple(est.shape)} rows, ATE RMSE {ate(est):.4f} m against "
           f"the rendered poses (the merged odometry alone {ate(odo):.4f} m), end "
           f"error {float(torch.linalg.norm(est[-1] - gt[-1])):.4f} m; live TUM rows "
@@ -1548,13 +1509,11 @@ def stream_phase(dev) -> dict:
           "trajectory() is not 420 finite rows")
     check(len(last_to_first) >= 1, f"no accepted loop from the second lap to the "
           f"first: {[(a['frame'], a['loop_idx']) for a in acc]}")
-    check(launches["nn"] >= 1 and launches["pack"] >= 1,
-          f"the stream run did not launch both kernels: {launches}")
     check(not in_runtime, f"the dispatch thread synced outside fused_step: {in_runtime}")
     check(f_syncs and not odd and len(f_syncs) == n,
           f"frames after the first made other than one host sync: {odd}")
     check(ate(est) < 1.5, f"ATE RMSE {ate(est):.3f} m over the circuit")
-    return dict(launches=launches, runner=runner, gt=gt, cfg=cfg, ate=ate(est))
+    return dict(runner=runner, gt=gt, cfg=cfg, ate=ate(est))
 
 
 def runner_against_process(cfg, log, dev, tmp, frames=40) -> list:
@@ -1786,7 +1745,9 @@ def geoslam_phase(dev) -> dict:
     16-frame unorganized corridor: `geometric_slam.run_sequence` (replayed
     from `GeoStepGraph`'s graph) held to tests/test_geometric_slam.py's
     bound and against two runs of the eager `geo_slam_step` loop; host syncs
-    and replays a graphed step; times graphed and eager."""
+    and replays a graphed step; both eigensolver kernels in the traced
+    graphed steps; times graphed and eager.  Returns the hand kernels of the
+    traced graphed steps by record key."""
     t_phase = time.perf_counter()
     cfg = config.SlamConfig()
     T = GEO_FRAMES
@@ -1794,15 +1755,13 @@ def geoslam_phase(dev) -> dict:
     traced = set(range(T - GEO_TRACED, T))
     e1 = run_geo(cfg, xyz_u, inten_u, dev, graph=False, syncs=True)   # also the warm-up
     e2 = run_geo(cfg, xyz_u, inten_u, dev, graph=False, traced=traced)
-    # the user's entry point, its kernels' launches counted (`geoslam`)
+    # the user's entry point
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
     t0 = time.perf_counter()
     outs = geometric_slam.run_sequence(xyz_u, inten_u, cfg)
     _sync_untracked(dev)
     wall = time.perf_counter() - t0
-    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     ga = run_geo(cfg, xyz_u, inten_u, dev, graph=True, syncs=True)
     g2 = run_geo(cfg, xyz_u, inten_u, dev, graph=True, traced=traced)
@@ -1852,8 +1811,7 @@ def geoslam_phase(dev) -> dict:
           f"{sum(sum(r['sites'].values()) for r in e1['rows'][1:]) / (T - 1):.2f}, graphed "
           f"after capture {g_syncs}; peak device memory of run_sequence {peak:.0f} MiB")
     print(f"  positions: eager against eager {spread:.3g} m (the spread), graphed against "
-          f"eager {diff:.3g} m; residual counts equal to eager on every frame {same_counts}; "
-          f"kernel launches {launches}")
+          f"eager {diff:.3g} m; residual counts equal to eager on every frame {same_counts}")
     print("  eager steps, each stage synchronized:")
     print_stage_rows(sorted(stage.items(), key=lambda kv: -sum(kv[1])))
     print_sync_sites(e1["rows"][1]["sites"])
@@ -1867,10 +1825,14 @@ def geoslam_phase(dev) -> dict:
     check(all(n == 0 for n in g_syncs), f"geoslam: host syncs a graphed step {g_syncs}")
     check(g_replays == [1] * (T - 1) and fg.replays["step"] == T - 1,
           f"geoslam: replays a step {g_replays}, {dict(fg.replays)}")
-    check(launches["eigh"] > 0 and launches["eigvalsh"] > 0,
-          f"geoslam: the eigensolver kernels were not launched on the path: {launches}")
+    seen = collections.Counter()
+    for k in sorted(traced):
+        seen.update(kernel_counts(g2["rows"][k]["device_names"]))
+    print(f"  hand kernels in the traces of the graphed steps {sorted(traced)}: {dict(seen)}")
+    check(seen["eigh"] > 0 and seen["eigvalsh"] > 0,
+          f"geoslam: the eigensolver kernels did not run in the graphed steps: {dict(seen)}")
     print(f"  geoslam phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(launches=launches)
+    return dict(seen)
 
 
 # ---- slice 6: the distributed back-end (parallel/) and SlamSystem.refine ---
@@ -1929,13 +1891,13 @@ def refine_phase(dev, circuit: dict) -> dict:
     """`dist_backend.refine` at full width on the circuit's keyframe store
     (no mesh, then over a one-rank NCCL group), the online trigger through
     `SlamSystem(cfg, mesh=...)`, and the reference's online-refine test at
-    the small config on the CPU and on the card."""
+    the small config on the CPU and on the card.  Returns the hand kernels
+    of one traced `refine` by record key (none run there)."""
     cfg, runner, gt = circuit["cfg"], circuit["runner"], circuit["gt"]
     state = runner.state
     bstate = state.backend
     n_kf = int(bstate.num_kf)
     K, F = bstate.kf_feat_valid.shape
-    reset_launches()
     with nccl_mesh(dev) as mesh:
         # (a) the circuit's store: stages timed, whole refine timed, syncs
         _sync_untracked(dev)
@@ -1944,10 +1906,12 @@ def refine_phase(dev, circuit: dict) -> dict:
         with stage_timers(REFINE_STAGES) as stage:
             res, t_staged = timed(dev, lambda: dist_backend.refine(bstate, cfg))
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-        inside = read_launches()
         res, t_refine = timed(dev, lambda: dist_backend.refine(bstate, cfg))
         with sync_counter(True) as sites:
             dist_backend.refine(bstate, cfg)
+        with frame_trace(True, host=False) as tr:
+            dist_backend.refine(bstate, cfg)
+        inside = kernel_counts(tr["device_names"])
         sharded, t_shard = timed(dev, lambda: dist_backend.shard_backend_state(bstate, mesh))
         res_m, t_mesh = timed(dev, lambda: dist_backend.refine(sharded, cfg, mesh=mesh))
         res_m, t_mesh2 = timed(dev, lambda: dist_backend.refine(sharded, cfg, mesh=mesh))
@@ -1974,8 +1938,7 @@ def refine_phase(dev, circuit: dict) -> dict:
         print(f"  host ms: refine {1e3 * t_refine:.3f} (mesh=None), {1e3 * t_mesh:.3f} "
               f"then {1e3 * t_mesh2:.3f} (NCCL group; the first call sets up the "
               f"communicator), shard_backend_state {1e3 * t_shard:.3f}; peak device "
-              f"memory {peak_mb:.0f} MiB ({held_mb:.0f} MiB held before the refine); "
-              f"kernel launches inside refine {inside}")
+              f"memory {peak_mb:.0f} MiB ({held_mb:.0f} MiB held before the refine)")
         print(f"  each stage synchronized (refine {1e3 * t_staged:.3f} ms in this run):")
         print_stage_rows(sorted(stage.items(), key=lambda kv: -sum(kv[1])))
         print(f"  host syncs of one refine {sum(sites.values())} (mesh=None), "
@@ -1983,6 +1946,8 @@ def refine_phase(dev, circuit: dict) -> dict:
               f"the group):")
         print_sync_sites(sites)
         print_sync_sites(mesh_sites)
+        print(f"  hand kernels in the trace of one refine (mesh=None) {inside}")
+        check(not any(inside.values()), f"refine launched hand kernels: {inside}")
         check(dpose < 1e-3, f"refine over the NCCL group is {dpose:.3g} m off mesh=None")
         check(dlm_med < LANDMARK_MEDIAN_TOL_M and dcost < 1e-3,
               f"BA over the NCCL group: landmarks {dlm_med:.3g} m (median), final cost "
@@ -1992,11 +1957,10 @@ def refine_phase(dev, circuit: dict) -> dict:
         check(bool(torch.isfinite(pose(res_m)).all()), "non-finite refined pose")
         check(est.shape == (CIRCUIT_FRAMES, 3) and bool(torch.isfinite(est).all()),
               "the refined circuit trajectory is not finite")
-        check(not any(inside.values()), f"refine launched kernels: {inside}")
         del adopted, sharded, res, res_m
-        online = online_refine_run(dev, mesh)
-        small = small_refine_runs(dev, mesh)
-    return dict(online=online, small=small)
+        online_refine_run(dev, mesh)
+        small_refine_runs(dev, mesh)
+    return inside
 
 
 # The BA's landmarks rest on float32 sums whose order differs between runs
@@ -2043,7 +2007,7 @@ def ba_agreement(a, b) -> tuple[float, float, float]:
     return float(d.max()), float(d.median()), abs(fa - fb) / max(abs(fb), 1e-30)
 
 
-def online_refine_run(dev, mesh) -> dict:
+def online_refine_run(dev, mesh) -> None:
     """(b) The slice's out-and-back at full width in the deferred-solve mode
     through `SlamSystem(cfg, mesh=mesh)` with `refine_every_kf` = 4, so that
     `process` refines at frame 32; then one explicit `refine()`."""
@@ -2057,12 +2021,10 @@ def online_refine_run(dev, mesh) -> dict:
     gt = traj.t - traj.t[0]
     system = SlamSystem(cfg, device=dev, mesh=mesh)
     keep = lambda r: (float(r.ba_initial_cost), float(r.ba_final_cost), int(r.num_obs))
-    reset_launches()
     with captured(dist_backend, "refine", keep) as auto:
         infos = [system.process(xyz[k], inten[k], k * 0.1) for k in range(xyz.shape[0])]
     before = system.trajectory()
     _, t_refine = timed(dev, system.refine)
-    launches = read_launches()
     after = system.trajectory()
     acc = [(int(i.num_kf) - 1, int(i.loop_idx)) for i in infos if bool(i.loop_found)]
     print(f"refine (b) (full width, the slice's out-and-back with online_pgo=False "
@@ -2071,14 +2033,13 @@ def online_refine_run(dev, mesh) -> dict:
           f"process {len(auto)} (BA cost, cost, observations: {auto}); trajectory ATE "
           f"{ate_of(before, gt):.4f} m before the explicit refine, "
           f"{ate_of(after, gt):.4f} m after it ({1e3 * t_refine:.3f} ms, adoption "
-          f"included); kernel launches {launches}")
+          f"included)")
     check(len(auto) == 1, f"process refined {len(auto)} times in 38 frames")
     check(after.shape == (38, 3) and bool(np.isfinite(after).all()),
           "the refined, adopted trajectory is not finite")
-    return dict(before=ate_of(before, gt), after=ate_of(after, gt), launches=launches)
 
 
-def small_refine_runs(dev, mesh) -> dict:
+def small_refine_runs(dev, mesh) -> None:
     """(c) tests/test_dist_backend.py::test_online_refine_improves_live_trajectory
     at its config and sensor noise (the scans rendered once on the CPU, the
     ground-RANSAC draws handed to both runs), on the CPU (no mesh) and on the
@@ -2104,7 +2065,6 @@ def small_refine_runs(dev, mesh) -> dict:
     out = {}
     for name, device, m in (("cpu", torch.device("cpu"), None), ("card", dev, mesh)):
         system = SlamSystem(cfg, device=device, mesh=m)
-        reset_launches()
         infos, t0 = [], time.perf_counter()
         for k in range(T):
             infos.append(system.process(xyz[k].to(device), inten[k].to(device), 0.1 * k,
@@ -2124,12 +2084,10 @@ def small_refine_runs(dev, mesh) -> dict:
             spread, step = ba_order_spread(on_cpu.state, cfg)
         before = system.trajectory()
         system.refine()
-        launches = read_launches()
         after = system.trajectory()
         out[name] = dict(flags=flags, loops=[(a, b) for a, b, _ in system.loops],
                          before=ate_of(before, gt), after=ate_of(after, gt),
-                         end=float(np.linalg.norm(after[-1] - gt[T - 1].numpy())), s=t_run,
-                         launches=launches)
+                         end=float(np.linalg.norm(after[-1] - gt[T - 1].numpy())), s=t_run)
     c, g = out["cpu"], out["card"]
     same = c["flags"] == g["flags"] and c["loops"] == g["loops"]
     print(f"refine (c) (small config, {T} noisy frames, refine after the run): "
@@ -2143,8 +2101,7 @@ def small_refine_runs(dev, mesh) -> dict:
           f"CPU's BA against itself with its observations permuted: median {spread:.3g} m; "
           f"median landmark step of the BA {step:.3g} m); "
           f"host s for the {T} "
-          f"frames: CPU {c['s']:.1f}, card {g['s']:.1f}; the card run's kernel launches "
-          f"{g['launches']}")
+          f"frames: CPU {c['s']:.1f}, card {g['s']:.1f}")
     check(same, "refine (c): the card took other decisions than the CPU")
     check(drefine < 1e-3, f"refine (c): card and CPU refines {drefine:.3g} m apart")
     check(dlm_med < LANDMARK_MEDIAN_TOL_CPU_M and dcost < 1e-3,
@@ -2155,7 +2112,6 @@ def small_refine_runs(dev, mesh) -> dict:
     for name, r in out.items():
         check(np.isfinite(r["after"]) and r["end"] < 1.0,
               f"refine (c) on the {name}: end error {r['end']:.4f} m after the refine")
-    return dict(launches=g["launches"], ate={k: (v["before"], v["after"]) for k, v in out.items()})
 
 
 def profile_phase(dev) -> None:
@@ -2238,22 +2194,20 @@ def synthetic_bag(path: str, frames, height: int, width: int) -> None:
                              b"size": struct.pack("<I", len(chunk))}, bz2.compress(chunk)))
 
 
-def tools_phase(dev) -> dict:
+def tools_phase(dev) -> None:
     """The user-facing and accuracy tools at full width on the card: the
     README's quick start (`tools/torch_replay.py --frames 40 --check-ate`,
     the `slam` pipeline) and the same 40 frames through `--pipeline
     odometry`; `torch_bag2islog.convert` of a bag of three full-width scans,
     read back through `ScanLog`; `torch_loop_eval.run_one` on the aliased
     corridor (os0_64_config, every channel, sensor noise seed 0), which
-    must close a correct loop.  Kernel launches are counted over the whole
-    phase."""
+    must close a correct loop."""
     sys.path.insert(0, TOOLS_DIR)
     import torch_bag2islog
     import torch_loop_eval
     import torch_replay
 
     t_phase = time.perf_counter()
-    reset_launches()
     for pipeline in ("slam", "odometry"):
         print(f"tools: torch_replay.py --frames {QUICK_START_FRAMES} --check-ate "
               f"--pipeline {pipeline}")
@@ -2295,20 +2249,15 @@ def tools_phase(dev) -> dict:
     t_render = time.perf_counter() - t0
     gt = synthetic.relative_positions(poses).cpu().numpy()
     res = torch_loop_eval.run_one(cfg, xyz, inten, gt, 0, ALIASED_FRAMES, dev)
-    launches = read_launches()
     print(f"tools: torch_loop_eval.run_one, aliased corridor, {ALIASED_FRAMES} noisy "
           f"frames (rendered in {t_render:.1f} s): {res['keyframes']} keyframes, "
           f"{res['accepted_loops']} accepted loops, {res['correct_loops']} correct, "
           f"precision {res['precision']}, recall {res['recall']}, ATE corrected "
           f"{res['ate_corrected_m']:.4f} m, live {res['ate_live_m']:.4f} m, "
           f"{res['scans_per_sec']} scans/s")
-    print(f"  tools phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
-          f"{launches['nn']}, pack kernel launches {launches['pack']}; "
+    print(f"  tools phase {time.perf_counter() - t_phase:.1f} s; "
           f"{devices.describe('cuda')}")
     check(res["correct_loops"] >= 1, f"the aliased corridor closed no correct loop: {res}")
-    check(launches["nn"] >= 1 and launches["pack"] >= 1,
-          f"the tools phase did not launch both kernels: {launches}")
-    return dict(launches=launches)
 
 
 # the measurement and scale-out tools at the measure phase's depth
@@ -2324,16 +2273,14 @@ MEASURE_TOOLS = (
 PRODUCT_NODES, PRODUCT_LOOPS = 1024, 200
 
 
-def measure_phase(dev) -> dict:
+def measure_phase(dev) -> None:
     """The measurement and scale-out tools on the card, each through its
     `main(argv)`, their records read back and held: the tools' own checks
     (their exit codes), the slope classes summing to the timed frames,
     device time and a kernel count on every profile row, the product-scale
-    solves within 1e-3 m of the dense and local ones with a lower ATE.
-    Kernel launches are counted over the whole phase."""
+    solves within 1e-3 m of the dense and local ones with a lower ATE."""
     sys.path.insert(0, TOOLS_DIR)
     t_phase = time.perf_counter()
-    reset_launches()
     rec = {}
     tmp = tempfile.mkdtemp(prefix="islam_measure.")
     try:
@@ -2348,7 +2295,6 @@ def measure_phase(dev) -> dict:
             print(f"measure: {name} took {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = read_launches()
 
     bf, sp = rec["torch_bench_full"], rec["torch_stream_probe"]
     print(f"measure: bench_full front end {bf['frontend_scans_per_sec']:.2f} scans/s, back end "
@@ -2389,10 +2335,8 @@ def measure_phase(dev) -> dict:
           and mp["refine_max_abs_dt_vs_single_process_m"] < 1e-3
           and mp["pgo_ate_after_m"] < mp["pgo_ate_before_m"],
           f"measure: the product-scale record fails its checks: {mp}")
-    print(f"  measure phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
-          f"{launches['nn']}, pack kernel launches {launches['pack']}; "
+    print(f"  measure phase {time.perf_counter() - t_phase:.1f} s; "
           f"{devices.describe('cuda')}")
-    return dict(launches=launches)
 
 
 MS_SESSIONS, MS_FRAMES, MS_FLAT = 8, 24, 3
@@ -2499,8 +2443,7 @@ def solver_loop_line() -> int:
     """The line of `solver.solve_pose`'s loop test (its one host read an
     iteration), as the sync counter keys it."""
     import inspect
-    fn = getattr(solver.solve_pose, "func", solver.solve_pose)    # a fixed-form partial
-    lines, first = inspect.getsourcelines(fn)
+    lines, first = inspect.getsourcelines(solver.solve_pose)
     return first + next(i for i, ln in enumerate(lines) if "bool(active" in ln)
 
 
@@ -2516,8 +2459,10 @@ def multisession_phase(dev) -> dict:
     """The batched step at full width through `BatchedStepGraph`: 8
     sessions held against their unbatched runs; host syncs and replays a
     graphed step; the eager batched step's host syncs and device kernels
-    per step at B = 1 and B = 8; graphed against eager; then the scaling
-    tool at reduced depth."""
+    per step at B = 1 and B = 8; graphed against eager, the graphed steps'
+    hand kernels against their iterations; then the scaling tool at reduced
+    depth.  Returns the hand kernels of the traced graphed steps by record
+    key."""
     t_phase = time.perf_counter()
     cfg = config.os0_64_config()
     B, F = MS_SESSIONS, MS_FRAMES
@@ -2531,9 +2476,7 @@ def multisession_phase(dev) -> dict:
     flags_site = f"frame_graph.py:{batched_read_line()}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
     run = _ms_run(cfg, xb, ib, range(B), mask, dev, count=True, graphs=True)
-    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     outs, secs, bg = run["outs"], run["secs"], run["graph"]
     skips = [[h.skip for h in o.host] for o in outs]
@@ -2584,14 +2527,6 @@ def multisession_phase(dev) -> dict:
     e8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True)
     g1 = _ms_run(cfg, *one, [0], mask, dev, count=True, graphs=True)
     g8 = _ms_run(cfg, *many, [0] * B, mask, dev, count=True, graphs=True)
-    # the same graphed step with its solves captured in the fixed form
-    # (every iteration run and frozen), beside the If nodes' early exit
-    fixed_solve = solver.solve_pose
-    solver.solve_pose = functools.partial(fixed_solve, fixed=True)
-    try:
-        g8x = _ms_run(cfg, *many, [0] * B, mask, dev, count=True, graphs=True)
-    finally:
-        solver.solve_pose = fixed_solve
     s1, n1, k1 = e1["sites"], e1["tests"], e1["kernels"]
     s8, n8, k8 = e8["sites"], e8["tests"], e8["kernels"]
     st = slam.init_state(cfg, seed=0, device=dev)
@@ -2625,6 +2560,22 @@ def multisession_phase(dev) -> dict:
         check(r["sites"] == {flags_site: n - 2} and not sum(r["tests"].values()),
               f"multisession: graphed {name}: host syncs {dict(r['sites'])}, solver loop "
               f"tests {r['tests']}")
+    # the traced last step of each graphed run: the scan-to-map solve's
+    # kernels inside its If nodes, 2 + 2 x the iterations of its slowest
+    # session (a CUPTI drop may lose one, so at most that, and exactly that
+    # on one step at least), the eigensolver on the card
+    seen, exact = collections.Counter(), []
+    for name, r in (("staggered", run), ("B=1", g1), (f"B={B}", g8)):
+        c = kernel_counts(r["kernels"])
+        its = int(r["outs"][-1].map_iterations.max())
+        print(f"multisession: graphed {name}, step {len(r['outs']) - 1}: scan-to-map "
+              f"iterations {its}, hand kernels in the trace {c}", flush=True)
+        check(c["mapsolve"] <= 2 + 2 * its and c["eigvalsh"] > 0,
+              f"multisession: graphed {name}: {c['mapsolve']} scan-to-map kernels for "
+              f"{its} iterations, {c['eigvalsh']} eigvalsh kernels")
+        exact.append(c["mapsolve"] == 2 + 2 * its)
+        seen.update(c)
+    check(any(exact), "multisession: no traced graphed step saw its scan-to-map kernels")
     diff = collections.Counter(k8)
     diff.subtract(k1)
     print("multisession: device kernels, B=8 against B=1, by name: " + "; ".join(
@@ -2635,8 +2586,7 @@ def multisession_phase(dev) -> dict:
           f"{sum(k1.values())} at B=1: the launches grow with the sessions")
     rate = {}
     for name, r, nb in (("eager B=1", e1, 1), (f"eager B={B}", e8, B), ("graphed B=1", g1, 1),
-                        (f"graphed B={B}", g8, B),
-                        (f"graphed B={B} with the solves in the fixed form", g8x, B)):
+                        (f"graphed B={B}", g8, B)):
         ms = 1e3 * statistics.median(r["secs"][1:-1])
         rate[name] = (ms, nb * 1e3 / ms, r["dev_us"] / 1e3, r["secs"][-1] * 1e3)
     print("multisession: " + "; ".join(
@@ -2664,9 +2614,8 @@ def multisession_phase(dev) -> dict:
           f"multisession: the scaling tool's record lacks keys: {tool}")
     check(all(r["host_syncs_per_step"] == 1 for r in tool["batch"].values()),
           f"multisession: the scaling tool's graphed step syncs {tool['batch']}")
-    print(f"  multisession phase {time.perf_counter() - t_phase:.1f} s; nn kernel launches "
-          f"{launches['nn']}, pack kernel launches {launches['pack']}", flush=True)
-    return dict(launches=launches)
+    print(f"  multisession phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(seen)
 
 
 # ---- slice 10: the compiled frame (FrameGraph) and its eigensolver --------
@@ -2691,15 +2640,11 @@ def recorded_inputs(mod, name: str):
         kept.append(a.detach().clone())
         return fn(a, *rest, **kw)
 
-    # the wrapped function counts its launches under its module name
-    recording.launches = getattr(fn, "launches", 0)
     setattr(mod, name, recording)
     try:
         yield kept
     finally:
         setattr(mod, name, fn)
-        if hasattr(fn, "launches"):
-            fn.launches = recording.launches
 
 
 def random_spd(batch: int, n: int, decades: float, g: torch.Generator) -> torch.Tensor:
@@ -2972,17 +2917,17 @@ def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None,
     frames of a sequence (all by default), each frame synchronized: its host
     ms, with `syncs` its host syncs by call site, for the frames `traced` a
     `torch.profiler` trace (device time, device kernels by name, the host's
-    launch calls) and the kernel launches the wrappers counted; whether it
-    captured the graph and the replays it took; with `its` its solves'
-    iterations (a replayed frame's read from the graph's buffers after
-    it)."""
+    launch calls); whether it captured the graph and the replays it took,
+    its flags (`FrameGraph.last_flags`), the device regions its stamps say
+    ran (`spans.recorder`'s newest frame) and its scan-to-map solve's
+    iterations; with `its` its solves' iterations (a replayed frame's read
+    from the graph's buffers after it)."""
     system = SlamSystem(cfg, seed=0, device=dev)
     fg = system.graph
     infos, rows = [], []
     with solve_records() as calls:
         for k in range(xyz.shape[0] if frames is None else frames):
             n_graphs, replays, n_calls = len(fg.capture_s), sum(fg.replays.values()), len(calls)
-            before = read_launches()
             with sync_counter(syncs) as sites, frame_trace(k in traced) as tr:
                 _sync_untracked(dev)
                 t0 = time.perf_counter()
@@ -2994,7 +2939,8 @@ def run_graphs(cfg, xyz, inten, dev, syncs=False, traced=(), frames=None,
                        captured=len(fg.capture_s) > n_graphs,
                        replays=sum(fg.replays.values()) - replays,
                        fell_back=h.skip and h.has_prev, regions=dict(fg.last_flags),
-                       launches={key: n - before[key] for key, n in read_launches().items()})
+                       stamped=set(spans.recorder.frames()[-1].device),
+                       map_its=int(fg.last_output.map_iterations))
             if its:
                 mine = [c for c in calls[n_calls:] if not c[2]]
                 if row["replays"]:
@@ -3043,9 +2989,8 @@ def cond_phase(dev) -> dict:
     """The solver's chain of If nodes (`utils.graph_cond`): one solve at the
     odometry's width captured once and replayed on three problems whose
     early exits differ, each replay bit-equal to its eager early exit with
-    the same iterations; the capture's and a fixed-form capture's replay
-    times on a solve that runs to its cap (what the chain costs), and the
-    handle kernel held and timed alone: a node on a device predicate, its
+    the same iterations; the replay's time on the problem that runs longest,
+    and the handle kernel held and timed alone: a node on a device predicate, its
     body run and skipped against the plain version's choice, the time of a
     node in a chain of `COND_CHAIN` skipped ones beside the host read it
     replaces (`bool(pred)`, the eager loop's test)."""
@@ -3058,46 +3003,29 @@ def cond_phase(dev) -> dict:
     dst.copy_(probs[0][1])
     solver.solve_pose(p0, fn, iters=COND_ITERS)           # warm-up
     pool = torch.cuda.graph_pool_handle()
-    graphs, outs = {}, {}
-    for form, kw in (("cond", {}), ("fixed", {"fixed": True})):
-        graphs[form] = torch.cuda.CUDAGraph()
-        with graph_cond.capture(graphs[form], pool):
-            outs[form] = solver.solve_pose(p0, fn, iters=COND_ITERS, **kw)
+    solve = torch.cuda.CUDAGraph()
+    with graph_cond.capture(solve, pool):
+        out = solver.solve_pose(p0, fn, iters=COND_ITERS)
     torch.cuda.synchronize()
     rows = []
     for s_, d_ in probs:
         src.copy_(s_)
         dst.copy_(d_)
         eager = solver.solve_pose(p0, fn, iters=COND_ITERS)
-        for form in ("cond", "fixed"):
-            graphs[form].replay()
+        solve.replay()
         torch.cuda.synchronize()
-        rows.append(dict(its=int(eager.iterations),
-                         graph_its={f: int(outs[f].iterations) for f in outs},
-                         same={f: same_solve(eager, outs[f]) for f in outs}))
-    # replays of the longest problem's solve, capped at its own exit (so
-    # that both forms run every iteration: the difference is the chain's
-    # cost), and capped at COND_ITERS (what the early exit saves)
+        rows.append(dict(its=int(eager.iterations), graph_its=int(out.iterations),
+                         same=same_solve(eager, out)))
     longest = max(range(len(rows)), key=lambda i: rows[i]["its"])
     its = rows[longest]["its"]
     src.copy_(probs[longest][0])
     dst.copy_(probs[longest][1])
-    for form, kw in (("cond at its exit", {}), ("fixed at its exit", {"fixed": True})):
-        graphs[form] = torch.cuda.CUDAGraph()
-        with graph_cond.capture(graphs[form], pool):
-            solver.solve_pose(p0, fn, iters=its, **kw)
-    ms = {f: [] for f in graphs}
-    for f in ("fixed", "cond", "cond at its exit", "fixed at its exit",
-              "fixed at its exit", "cond at its exit", "cond", "fixed"):
-        ms[f].append(time_cuda(graphs[f].replay, reps=30))
-    solve_ms = {f: statistics.median(v) for f, v in ms.items()}
-    node_chain_ms = (solve_ms["cond at its exit"] - solve_ms["fixed at its exit"]) / its
+    solve_ms = time_cuda(solve.replay, reps=30)
     print(f"cond: one solve ({COND_POINTS} points, {COND_ITERS} iterations at most) "
-          f"captured as a chain of If nodes and in the fixed form, replayed on three "
-          f"problems: {rows}; replay ms on the problem that takes {its} iterations, "
-          f"alternated: {ms}; the chain's cost an iteration, both forms capped at "
-          f"{its}: {node_chain_ms:.5f} ms; {devices.describe('cuda')}", flush=True)
-    check(all(r["graph_its"]["cond"] == r["its"] and all(r["same"].values()) for r in rows),
+          f"captured as a chain of If nodes, replayed on three problems: {rows}; replay "
+          f"ms on the problem that takes {its} iterations: {solve_ms:.5f}; "
+          f"{devices.describe('cuda')}", flush=True)
+    check(all(r["graph_its"] == r["its"] and r["same"] for r in rows),
           f"cond: a replayed solve is not its eager early exit: {rows}")
     check(len({r["its"] for r in rows}) == len(rows),
           f"cond: the problems' early exits do not differ: {rows}")
@@ -3132,7 +3060,7 @@ def cond_phase(dev) -> dict:
     plain_ms = time_cuda(lambda: bool(pred))
     rec = dict(max_abs_err=err, ms=node_ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=1e3 / PEAK_BYTES_PER_S, bound_by="bytes",
-               solve_ms=solve_ms, solve_rows=rows, chain_ms_per_iteration=node_chain_ms)
+               solve_ms=solve_ms, solve_rows=rows)
     print(f"cond: set_handle_kernel, a node on a device predicate held against the plain "
           f"choice over run, skipped, run: max |error| {err}; one node in a chain of "
           f"{COND_CHAIN} skipped ones {node_ms:.5f} ms (handle kernel and node evaluation), "
@@ -3217,11 +3145,13 @@ def stamp_phase(dev) -> dict:
                 calibration=cal, cases=rows)
 
 
-def graph_phase(dev) -> dict:
+def graph_phase(dev) -> tuple[dict, dict]:
     """Every frame as one replayed CUDA graph (`FrameGraph`, through
     `SlamSystem`: keyframes, the verification and the accepted loop inside
     it) against the eager `fused_step`, at full width; first the
-    eigensolver kernels and the solver's chain of If nodes."""
+    eigensolver kernels and the solver's chain of If nodes.  Returns those
+    kernels' records and the hand kernels of the traced frames by record
+    key."""
     t_phase = time.perf_counter()
     kern = eig_kernel_phase(dev)
     kern["cond"] = cond_phase(dev)
@@ -3257,11 +3187,7 @@ def graph_phase(dev) -> dict:
     e2, e_its = fused_run_iterations(cfg, xyz, inten, dev, traced=set(probe[:3]))
     lap("eager, traced in part, iterations")
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
-    loop.posegraph.solves.clear()
     ga = run_graphs(cfg, xyz, inten, dev)
-    launches = read_launches()
-    solves = dict(loop.posegraph.solves)
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     graph_reserved = torch.cuda.memory_reserved(dev) / 2 ** 20
     lap("graph run")
@@ -3270,13 +3196,6 @@ def graph_phase(dev) -> dict:
     traced = sorted(probe + kf_probe + loop_frames[:1])
     gt = run_graphs(cfg, xyz, inten, dev, traced=set(traced), frames=traced[-1] + 1)
     lap("graph traced")
-    fixed_solve = solver.solve_pose
-    solver.solve_pose = functools.partial(fixed_solve, fixed=True)
-    try:
-        gx = run_graphs(cfg, xyz, inten, dev, traced=set(probe[:3]), frames=probe[2] + 1)
-    finally:
-        solver.solve_pose = fixed_solve
-    lap("fixed-form graph traced")
     fg = ga["system"].graph
     spread = float((e1["pose_t"] - e2["pose_t"]).abs().max())
     diff = max(float((g["pose_t"] - e["pose_t"]).abs().max())
@@ -3285,7 +3204,7 @@ def graph_phase(dev) -> dict:
     # the traced runs stop early: held to the eager run's first frames
     cut = lambda d, m: (d[0][:m], [kf for kf in d[1] if kf[0] < m])
     same = all(decisions(g) == cut(decisions(e1), len(g["frames"]))
-               for g in (ga, gs, gt, gx, e2))
+               for g in (ga, gs, gt, e2))
     # every frame after the capture, keyframes and the accepted loop included
     after = [k for k in range(n) if not any(r["captured"] for r in (ga["rows"][k],
                                                                     gs["rows"][k]))
@@ -3301,16 +3220,12 @@ def graph_phase(dev) -> dict:
     its_differ = [(k, e_its[k], r["its"]) for k, r in enumerate(gs["rows"])
                   if r["its"] != e_its[k]]
     med = lambda xs: statistics.median(xs) if xs else float("nan")
-    # the first three traced frames, in both graphs
-    dev_us = {name: med([r["rows"][k]["device_us"] for k in probe[:3]]) for name, r in
-              (("cond", gt), ("fixed", gx))}
     kf_plain = [k for k in kf_frames if k in after and k not in loop_frames]
-    kf_nodes = [(k, ga["rows"][k]["launches"]["cond"]) for k in kf_frames if k in after]
     ms_of = lambda rows, ks: [round(rows[k], 3) for k in ks]
     g_ms = [r["ms"] for r in ga["rows"]]
     e_ms = [1e3 * t for t in e1["t_step"]]
-    print(f"graph (full width slice, {n} frames): decisions of three graph runs, the "
-          f"fixed-form graph run and two eager runs equal {same}; keyframes "
+    print(f"graph (full width slice, {n} frames): decisions of three graph runs and two "
+          f"eager runs equal {same}; keyframes "
           f"{len(e1['kfs'])} at frames {kf_frames}, skips "
           f"{[k for k, f in enumerate(e1['frames']) if f[0]]}, accepted loops "
           f"{[(a['frame'], a['loop_idx']) for a in e1['kfs'] if a['accepted']]}")
@@ -3331,22 +3246,16 @@ def graph_phase(dev) -> dict:
     print(f"  device us per non-keyframe frame (median of frames {probe[:3]}; "
           f"torch.profiler): eager {med([e2['device_us'][k] for k in probe[:3]]):.1f} in "
           f"{med([e2['device_kernels'][k] for k in probe[:3]]):.0f} device operations, "
-          f"graph with the solves as chains of If nodes {dev_us['cond']:.1f} in "
-          f"{med([gt['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}, the same graph "
-          f"with the solves in the fixed form {dev_us['fixed']:.1f} in "
-          f"{med([gx['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}; host ms on "
-          f"those traced frames {med([gt['rows'][k]['ms'] for k in probe[:3]]):.3f} and "
-          f"{med([gx['rows'][k]['ms'] for k in probe[:3]]):.3f}; graph device us over all "
+          f"graph {med([gt['rows'][k]['device_us'] for k in probe[:3]]):.1f} in "
+          f"{med([gt['rows'][k]['device_kernels'] for k in probe[:3]]):.0f}; host ms on "
+          f"those traced frames {med([gt['rows'][k]['ms'] for k in probe[:3]]):.3f}; graph "
+          f"device us over all "
           f"{len(probe)} traced frames {med([gt['rows'][k]['device_us'] for k in probe]):.1f}; "
           f"the keyframe {kf_probe} {[gt['rows'][k]['device_us'] for k in kf_probe]} us in "
           f"{[gt['rows'][k]['device_kernels'] for k in kf_probe]} device operations")
     print(f"  capture s {({k: round(v, 4) for k, v in fg.capture_s.items()})}; warm-up s "
           f"before it by region {warmup_text(fg)}; "
-          f"replays {dict(fg.replays)}; If nodes a replay outside the regions "
-          f"{fg.segments.kernels['frame'][-1]}, inside them "
-          f"{({r: v[-1] for r, v in fg.segments.region_kernels['frame'].items()})}; If "
-          f"nodes counted on each keyframe replay {kf_nodes}; PGO solves by bucket "
-          f"{solves}; peak device memory eager "
+          f"replays {dict(fg.replays)}; peak device memory eager "
           f"{eager_peak:.0f} MiB, graph {graph_peak:.0f} MiB (reserved {graph_reserved:.0f} "
           f"MiB)")
     print(f"  frames after capture {after[0]}-{after[-1]} ({len(after)}): host syncs by "
@@ -3368,15 +3277,17 @@ def graph_phase(dev) -> dict:
     check(all(r == 1 for _, r in counted) and all(r == c == 1 for _, r, c in replays),
           f"graph: replays a frame {counted}, {replays}")
     check(all(o <= GRAPH_MAX_OTHER for _, o in other), f"graph: other launches {other}")
-    check(all(launches[key] > 0 for key in WRAPPERS),
-          f"graph: a kernel of the path was not launched: {launches}")
-    check(all(n_nodes > fg.segments.kernels["frame"][-1] for _, n_nodes in kf_nodes),
-          f"graph: a keyframe replay counted no If node of its region: {kf_nodes}")
-    # the slice's keyframes fit the PGO's smallest bucket
-    pgo_size = loop.posegraph.buckets(cfg.loop.max_keyframes)[0]
-    check(solves == {pgo_size: len(loop_frames)},
-          f"graph: PGO solves by bucket {solves}, accepted loops {loop_frames}")
-    traced_launches(gt, traced, "graph")
+    # the slice's keyframes fit the PGO's smallest bucket: its region stamps
+    # the device's clock exactly on the accepted loops, as the flags say
+    pgo = f"pgo.{loop.posegraph.buckets(cfg.loop.max_keyframes)[0]}"
+    solved = [k for k, r in enumerate(ga["rows"]) if r["regions"].get(pgo)]
+    stamped = [k for k, r in enumerate(ga["rows"]) if pgo in r["stamped"]]
+    print(f"  {pgo}: run by the flags at frames {solved}, stamped on the device at "
+          f"{stamped}")
+    check(stamped == solved == loop_frames, f"graph: {pgo} stamped at frames {stamped}, "
+          f"run by the flags at {solved}, accepted loops {loop_frames}")
+    seen = traced_kernels(gt, traced, "graph")
+    check(all(seen.values()), f"graph: a kernel of the path was not in the traces: {seen}")
 
     # the capacity compaction replayed: the store cut to 8 keyframes, so the
     # slice's ninth keyframe compacts it inside the graph
@@ -3428,14 +3339,14 @@ def graph_phase(dev) -> dict:
     check(f_its == fe_its, f"graph: fallback frames' iterations {f_its} against {fe_its}")
     check(all(fgr["rows"][k]["fell_back"] and fgr["rows"][k]["replays"] for k in ftraced),
           f"graph: the traced fallback frames {ftraced} did not replay with the region")
-    traced_launches(fgr, ftraced, "graph (fallback)")
+    traced_kernels(fgr, ftraced, "graph (fallback)")
     lap("fallback")
     print(f"  graph phase {time.perf_counter() - t_phase:.1f} s "
           f"({({k: round(v, 1) for k, v in secs.items()})})", flush=True)
-    return dict(launches=launches, kern=kern)
+    return kern, seen
 
 
-# which device kernels of a trace each record key's wrapper launches (the
+# the device kernels of a trace that each record key stands for (the
 # eigensolver's template arguments: <T, N, VECS>, vectors for `eigh` only)
 TRACE_KERNELS = {
     "eigh": lambda n: "jacobi_kernel" in n and ("true" in n or "(bool)1" in n),
@@ -3449,26 +3360,43 @@ TRACE_KERNELS = {
 }
 
 
-def traced_launches(run: dict, frames, what: str) -> None:
-    """On the traced frames `frames` of `run`, the launches the wrappers
-    counted (a replay: what its capture recorded outside the regions and
-    inside those that ran) against the kernels the profiler saw by name.
-    CUPTI now and then drops a launch from a trace (`kernel_device_us`), so
-    a trace may see fewer, never more, and one frame at least must see
-    exactly the count."""
-    exact = []
+# the ICP's kernels: they run only inside the verification region
+ICP_KERNELS = ("nn", "pack", "svd3")
+
+
+def kernel_counts(names) -> dict:
+    """The hand kernels among a trace's device kernels by name (`names`, a
+    Counter), by record key (`TRACE_KERNELS`)."""
+    return {key: sum(v for name, v in names.items() if match(name))
+            for key, match in TRACE_KERNELS.items()}
+
+
+def traced_kernels(run: dict, frames, what: str) -> dict:
+    """The hand kernels of each traced frame `frames` of `run`, counted by
+    name (`TRACE_KERNELS`), held against the frame's flags: the scan-to-map
+    solve's kernels number 2 + 2 x its iterations (two to start, two in
+    each iteration's If node that ran), and the ICP's run only on a frame
+    that verified a candidate.  CUPTI now and then drops a launch from a
+    trace (`kernel_device_us`), so a frame may see fewer solve kernels,
+    never more, and one frame at least must see exactly as many.  The other
+    kernels are printed, not held.  Returns each key's kernels over the
+    frames."""
+    exact, total = [], collections.Counter({key: 0 for key in TRACE_KERNELS})
     for k in frames:
         row = run["rows"][k]
-        seen = {key: sum(v for name, v in row["device_names"].items() if match(name))
-                for key, match in TRACE_KERNELS.items()}
-        counted = {key: row["launches"][key] for key in TRACE_KERNELS}
-        print(f"  {what}: frame {k} (fallback taken {row['fell_back']}): launches counted "
-              f"{counted}, kernels in the trace {seen}; the eigensolver's names "
-              f"{sorted({n[:90] for n in row['device_names'] if 'jacobi' in n})}")
-        check(all(seen[key] <= counted[key] for key in seen),
-              f"{what}: frame {k}: the trace saw more kernels {seen} than counted {counted}")
-        exact.append(seen == counted)
-    check(any(exact), f"{what}: no traced frame saw the launches counted")
+        seen = kernel_counts(row["device_names"])
+        total.update(seen)
+        solve, verified = 2 + 2 * row["map_its"], bool(row["regions"]["verify"])
+        print(f"  {what}: frame {k} (fallback taken {row['fell_back']}, verified "
+              f"{verified}, scan-to-map iterations {row['map_its']}): kernels in the trace "
+              f"{seen}")
+        check(seen["mapsolve"] <= solve, f"{what}: frame {k}: {seen['mapsolve']} scan-to-map "
+              f"kernels for {row['map_its']} iterations")
+        check(verified or not any(seen[key] for key in ICP_KERNELS),
+              f"{what}: frame {k}: ICP kernels on a frame that verified nothing: {seen}")
+        exact.append(seen["mapsolve"] == solve)
+    check(any(exact), f"{what}: no traced frame saw its scan-to-map kernels")
+    return dict(total)
 
 
 def frame_graph_read_line() -> int:
@@ -3515,22 +3443,18 @@ KERNELS = (
 
 
 def kernel_records(kern: dict, by_path: dict) -> dict:
-    """The per-kernel record; `launches` sums the main paths' runs (the
-    slice's `SlamSystem.process`, the graph phase's timed `SlamSystem` run,
-    the geoslam phase's `geometric_slam.run_sequence`, the circuit's `StreamingRunner.run`, the refine phase's full-width
-    `SlamSystem(cfg, mesh=...)` run, part b, its small-config card run,
-    part c, the tools phase, the measure phase and the multisession phase's
-    B = 8 run), each counted from 0 just before its run and read just after
-    it (a graph replay adds the launches its capture recorded);
-    `launches_by_path` splits it."""
+    """The per-kernel record: each kernel's source, what it replaces, its
+    phase's checks and times, and `launches_by_path`: its launches in each
+    path's `torch.profiler` traces (graph: the traced `FrameGraph` frames;
+    geoslam: the traced `GeoStepGraph` steps; refine: one `refine`;
+    multisession: the traced last step of each graphed run)."""
     return {"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": sum(v[key] for v in by_path.values()),
-        "launches_by_path": {path: v[key] for path, v in by_path.items()},
         **kern[key],
+        "launches_by_path": {path: seen[key] for path, seen in by_path.items()},
         "passed": True,
     } for key, name, source, replaces in KERNELS]}
 
@@ -3593,27 +3517,19 @@ def main() -> int:
     grid_phase(dev)
     small_phase(dev)
     fallback_phase(dev)
-    sl = slice_phase(dev)
-    gr = graph_phase(dev)
+    slice_phase(dev)
+    by_path = {}
+    graph_kern, by_path["graph"] = graph_phase(dev)
+    kern.update(graph_kern)
     stream_small_phase(dev)
     checkpoint_phase(dev)
-    geo = geoslam_phase(dev)
-    st = stream_phase(dev)
-    rf = refine_phase(dev, st)
-    tl = tools_phase(dev)
-    ms = measure_phase(dev)
-    mu = multisession_phase(dev)
+    by_path["geoslam"] = geoslam_phase(dev)
+    by_path["refine"] = refine_phase(dev, stream_phase(dev))
+    tools_phase(dev)
+    measure_phase(dev)
+    by_path["multisession"] = multisession_phase(dev)
     print(devices.describe("cuda"))
-    print(json.dumps(kernel_records({**kern, **gr["kern"]},
-                                    {"slice": sl["launches"],
-                                     "graph": gr["launches"],
-                                     "geoslam": geo["launches"],
-                                     "stream": st["launches"],
-                                     "refine": rf["online"]["launches"],
-                                     "refine-small": rf["small"]["launches"],
-                                     "tools": tl["launches"],
-                                     "measure": ms["launches"],
-                                     "multisession": mu["launches"]})))
+    print(json.dumps(kernel_records(kern, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,9 +19,8 @@ on the card.
   every caller is sign-invariant.
 - `eigvalsh(a)`: a (..., n, n), n = 3 or 6 -> eigenvalues ascending.
 
-Both read the lower triangle, take float32 or float64, give zeros for an
-all-zero matrix, and count their kernel launches in `eigh.launches` /
-`eigvalsh.launches`.  The kernels are compiled from the repository's
+Both read the lower triangle, take float32 or float64 and give zeros for
+an all-zero matrix.  The kernels are compiled from the repository's
 source at first use (`utils.nvcc`) into
 `intensity_slam_tpu_torch/_build/libisl_eigsym.so`.
 """
@@ -107,12 +106,7 @@ def eigh(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     kernel, CPU tensors run `torch.linalg.eigh`."""
     if a.device.type == "cpu":
         return eigh_plain(a)
-    out = _launch(a, vectors=True)
-    eigh.launches += 1
-    return out
-
-
-eigh.launches = 0
+    return _launch(a, vectors=True)
 
 
 def eigvalsh(a: torch.Tensor) -> torch.Tensor:
@@ -122,8 +116,4 @@ def eigvalsh(a: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return eigvalsh_plain(a)
     vals, _ = _launch(a, vectors=False)
-    eigvalsh.launches += 1
     return vals
-
-
-eigvalsh.launches = 0

@@ -35,9 +35,7 @@ leading dims `lead` (none for one session, (B,) for B sessions, B <= 32),
 weights) of shapes lead + (Gp, 3), lead + (Gp, 3), lead + (Gp,),
 lead + (Gp,); `lines` = (points, a, b, weights), lead + (Gl, 3) and
 lead + (Gl,), or None; `points` = (src, dst, weights), lead + (Gw, 3) and
-lead + (Gw,), or None.  `launches` counts the kernel launches (the
-eigensolver's count in `eigsym.eigvalsh.launches`).  The kernels are
-compiled from the repository's source at first use (`utils.nvcc`) into
+lead + (Gw,), or None.  The kernels are compiled from the repository's source at first use (`utils.nvcc`) into
 `intensity_slam_tpu_torch/_build/libisl_mapsolve.so`.
 """
 
@@ -67,7 +65,6 @@ GRAD_TOL = 1e-8
 # the state row's fields (`csrc/mapsolve.cu`)
 _Q, _T, _COST, _COST0, _LAM, _REL, _GNORM = 0, 4, 7, 8, 9, 10, 11
 
-launches = 0
 _lib = None
 
 
@@ -220,7 +217,6 @@ def _solve_kernels(lead, prior, prior_sqrt_info, planes, lines, points, iters,
     def pair(init: bool) -> None:
         """The evaluation (at the prior, else at the candidate) and the step
         kernel on the current stream (a node's body stream under capture)."""
-        global launches
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.isl_mapsolve_eval(*rows, pq.data_ptr(), pt.data_ptr(), state.data_ptr(),
                                    active.data_ptr(), int(init), robust_scale,
@@ -234,7 +230,6 @@ def _solve_kernels(lead, prior, prior_sqrt_info, planes, lines, points, iters,
         if rc != 0:
             raise RuntimeError("mapsolve kernel launch failed: "
                                + lib.isl_mapsolve_error_string(rc).decode())
-        launches += 2
 
     pair(True)
     captured = graph_cond.capturing(dev)

@@ -18,8 +18,6 @@ the plain versions `pack_targets_plain` and `nearest_neighbor_packed_plain`,
 which are also the kernels' references on the card.
 `nearest_neighbor_plain` is the explicit-difference brute force over the
 unpacked cloud that both routes must equal bit for bit.
-`pack_targets.launches` and `nearest_neighbor_packed.launches` count the
-kernel launches.
 
 The kernels are compiled from the repository's source at first use with
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false` into a shared
@@ -170,11 +168,7 @@ def pack_targets(tgt: torch.Tensor, tgt_mask: torch.Tensor) -> PackedTargets:
     _raise_on(_library().isl_pack_launch(
         tgt.data_ptr(), tgt_mask.data_ptr(), M, data.data_ptr(),
         count.data_ptr(), stream), "pack_kernel")
-    pack_targets.launches += 1
     return PackedTargets(data, count)
-
-
-pack_targets.launches = 0
 
 
 def nearest_neighbor_packed(src: torch.Tensor, packed: PackedTargets):
@@ -200,11 +194,7 @@ def nearest_neighbor_packed(src: torch.Tensor, packed: PackedTargets):
     _raise_on(_library().isl_nn_packed_launch(
         src.data_ptr(), packed.data.data_ptr(), packed.count.data_ptr(), P,
         idx.data_ptr(), dist.data_ptr(), stream), "nn_packed_kernel")
-    nearest_neighbor_packed.launches += 1
     return idx, dist
-
-
-nearest_neighbor_packed.launches = 0
 
 
 def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor,

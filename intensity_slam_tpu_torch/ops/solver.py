@@ -12,17 +12,14 @@ read on the host once per iteration, so the solve stops on the same iteration
 as the reference.  While the current CUDA stream is being captured into a
 graph (`pipeline.frame_graph`), the loop is a chain of `iters` conditional
 nodes (`utils.graph_cond.when`): iteration k's test is computed on the
-device before its node, and its body, one iteration of the frozen form
-below, runs only on the replays whose solve is still iterating and writes
+device before its node, and its body, one iteration that keeps the values
+of a solve that has met its test (the batched form below), runs only on the
+replays whose solve is still iterating and writes
 the loop's state into buffers made before the first node; so a replayed
 solve stops on the iteration the early-exit loop stops on.  `cond=True`
 selects that form off capture too (each node's test read on the host, as
-the CPU tests run it).  With `fixed=True` the loop reads nothing and runs
-all `iters` iterations, freezing the solve once it meets its test (pose,
-cost, damping, step test and iteration count kept, the frozen iterations
-computed and discarded by `torch.where`), the semantics of a vmapped
-`while_loop`.  Every output of either form is bit-equal to the early-exit
-loop's.
+the CPU tests run it).  Every output of that form is bit-equal to the
+early-exit loop's.
 The smallest Hessian eigenvalue comes from `ops.eigsym`, which reads no
 status either.  A residual function may carry its analytic Jacobian as a
 `jacobian(pose)` attribute (`point_to_point` does); any other residual
@@ -105,7 +102,6 @@ def solve_pose(
     lm_lambda0: float = 1e-4,
     use_lm: bool = True,
     grad_tol: float = 1e-8,
-    fixed: bool = False,
     cond: bool | None = None,
 ) -> SolveResult:
     """Minimize sum_g w_g rho(||r_g(pose)||^2) over SE(3).
@@ -115,8 +111,8 @@ def solve_pose(
     `jacobian(pose)` attribute returns the (..., G, D, 6) Jacobian w.r.t. the
     right tangent at 0.  One host read per iteration (the loop condition)
     eagerly; under capture (`cond=None` while the current CUDA stream is
-    capturing a graph, or `cond=True`) a conditional node an iteration; none
-    in the fixed form (`fixed=True`).  With a batch of poses (B, 4)/(B, 3)
+    capturing a graph, or `cond=True`) a conditional node an iteration.
+    With a batch of poses (B, 4)/(B, 3)
     every output has a leading B."""
 
     def cost_of(p: Pose) -> torch.Tensor:
@@ -149,8 +145,8 @@ def solve_pose(
     dev = pose0.q.device
     lead = pose0.q.shape[:-1]        # () alone, (B,) for a batch of sessions
     if cond is None:
-        cond = not fixed and graph_cond.capturing(dev)
-    freeze = bool(lead) or fixed or cond   # a frozen solve keeps its values
+        cond = graph_cond.capturing(dev)
+    freeze = bool(lead) or cond   # a frozen solve keeps its values
     eye6 = torch.eye(6, device=dev)
     c0 = cost_of(pose0)
     tol = grad_tol * torch.clamp(c0, min=1.0)
@@ -221,14 +217,13 @@ def solve_pose(
         active = iterating()
         if cond:
             # iteration k as a conditional node: its body writes the state
-            with graph_cond.when(active.any() if lead else active, "solve",
-                                 kernels=False) as taken:
+            with graph_cond.when(active.any() if lead else active, "solve") as taken:
                 if taken:
                     new = iteration(active)
                     for buf, v in zip((pose.q, pose.t, cost, lam, rel, rej, gnorm, its),
                                       (new[0].q, new[0].t) + new[1:]):
                         buf.copy_(v)
-        elif fixed or bool(active.any() if lead else active):
+        elif bool(active.any() if lead else active):
             pose, cost, lam, rel, rej, gnorm, its = iteration(active)
         else:
             break

@@ -15,9 +15,8 @@ reference on the card.
 reflection fixed, so that `U @ Vt` is the reference's rotation
 U diag(1, 1, sign det(U V^T)) V^T: the last column of U and the last value
 of S carry the sign.  The singular vectors' signs are free (as LAPACK's
-are), so compare rotations, not U and V.  Takes float32 or float64, counts
-its kernel launches in `svd3.launches`.  The kernel is compiled from the
-repository's source at first use (`utils.nvcc`) into
+are), so compare rotations, not U and V.  Takes float32 or float64.  The
+kernel is compiled from the repository's source at first use (`utils.nvcc`) into
 `intensity_slam_tpu_torch/_build/libisl_svd3.so`.
 """
 
@@ -90,8 +89,4 @@ def svd3(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if rc != 0:
         raise RuntimeError("svd3_kernel launch failed: "
                            + lib.isl_svd3_error_string(rc).decode())
-    svd3.launches += 1
     return U, S, Vt
-
-
-svd3.launches = 0

@@ -42,11 +42,9 @@ here, the fallback and the whole keyframe branch with the conds inside it.
               `FrameInfo`, every frame
 
 then the flags (skip, has_prev, is_keyframe, a candidate found, the loop
-accepted, the store compacted, the scan-to-map solve's iterations, the
-pose graph's node count, whose bucket is the one the PGO ran at) come to
-the host, the frame's one read: it
-decides nothing but the kernel counts, the PGO's solve count
-(`posegraph.solves`) and `FrameInfo`'s unpacking, as the
+accepted, the store compacted, the pose graph's node count, whose bucket
+is the one the PGO ran at) come to the host, the frame's one read: it
+decides nothing but `last_flags` and `FrameInfo`'s unpacking, as the
 counterpart of `jax.jit(fused_step, donate_argnums=(0,))`.  The read also
 brings the device stamps of the frame's regions (`utils.spans`: `frame`,
 `front`, `back`, `mapping` inside it and `mapping.solve` inside that,
@@ -55,7 +53,7 @@ written into the same buffer.
 `BatchedStepGraph`'s step is one graph of `front`, the fallback region when
 any session's flags say `skip & has_prev` (solved on all B and kept where
 they say so, `slam._fallback_batched`) and `back`, then the (3, B) flags
-and the scan-to-map solve's iterations read.
+read.
 
 - **Static buffers.** The frame's inputs (`xyz`, `inten`, the timestamp as
   a 0-d tensor, the RANSAC draws `ground_u`) and the whole state live in
@@ -87,11 +85,6 @@ and the scan-to-map solve's iterations read.
   the step's outputs are packed into one byte tensor inside the graph and
   cloned once after it; the returned `FrameInfo` (`SlamOutput`,
   `GeoSlamOutput`) holds views of that clone and stays valid.
-- **Kernel counts.** A capture records the hand kernels' launches without
-  making them, and every replay makes them again: the counts of the
-  wrappers in `KERNEL_WRAPPERS` are taken back after a capture, and each
-  replay advances them by what the capture recorded outside the regions,
-  and inside each region that the flags read after it say ran.
 - **Spans.**  `FrameGraph.step` records its host phases (`graph.inputs`,
   `graph.launch`, `graph.read`, `graph.unpack`) and its device regions
   into `utils.spans.recorder`, in the frame that `begin_frame` opened (the
@@ -112,9 +105,8 @@ import time
 import torch
 
 from ..config import SlamConfig
-from ..ops import mapsolve, projection
+from ..ops import projection
 from ..utils import graph_cond, spans
-from ..utils.graph_cond import KERNEL_WRAPPERS
 from ..utils.tree import clone_state, donate, generators, leaves, map_leaves
 from ..utils.se3 import Pose
 from . import fused, loop, posegraph, slam
@@ -167,90 +159,44 @@ def warm_up(fn, state) -> None:
 class Segments:
     """The capture and replay bookkeeping of one graph owner: its graphs
     (each captured after what it records ran eagerly once, sharing one
-    memory pool), their outputs, the hand kernels' launches a replay
-    outside and inside each conditional region, `capture_s` and `replays`
-    by graph."""
+    memory pool), their outputs, `capture_s` and `replays` by graph."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
         self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
         self.outs: dict = {}
-        self.kernels: dict[str, list[int]] = {}     # a replay's, outside its regions
-        # by region, a node's (the nodes of a region are alike: a loop's
-        # iterations)
-        self.region_kernels: dict[str, dict[str, list[int]]] = {}
         self.pool = None
         self.capture_s: dict[str, float] = {}
         self.replays: collections.Counter = collections.Counter()
 
-    def capture(self, name: str, fn, regions: tuple = ()) -> None:
-        """Capture `fn()` into graph `name` and keep its output.  The hand
-        kernels' launches it recorded are taken back from the wrappers'
-        counts and kept, those inside each conditional region of `regions`
-        (`graph_cond.when`) apart, by node; a region not named may hold
-        none."""
+    def capture(self, name: str, fn) -> None:
+        """Capture `fn()` into graph `name` and keep its output."""
         t0 = time.perf_counter()
         g = torch.cuda.CUDAGraph()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = graph_cond.launch_counts()
-        graph_cond.recorded.clear()
-        graph_cond.nodes.clear()
         with graph_cond.capture(g, self.pool):
             self.outs[name] = fn()
         torch.cuda.synchronize(self.device)
-        total = [a - b for a, b in zip(graph_cond.launch_counts(), before)]
-        for w, b in zip(KERNEL_WRAPPERS, before):
-            w.launches = b
-        stray = {r for r, n in graph_cond.recorded.items() if any(n) and r not in regions}
-        if stray:
-            raise RuntimeError(f"graph {name!r}: hand kernels captured in regions "
-                               f"{sorted(stray)} whose replays are not counted")
-        inside = {r: graph_cond.recorded.get(r, [0] * len(total)) for r in regions}
-        self.kernels[name] = [t - sum(n[i] for n in inside.values())
-                              for i, t in enumerate(total)]
-        per_node = {}
-        for r, n in inside.items():
-            k = max(graph_cond.nodes[r], 1)
-            if any(x % k for x in n):
-                raise RuntimeError(f"graph {name!r}: the {k} nodes of region {r!r} hold "
-                                   f"unlike launches {n}")
-            per_node[r] = [x // k for x in n]
-        self.region_kernels[name] = per_node
         self.graphs[name] = g
         self.capture_s[name] = time.perf_counter() - t0
 
     def replay(self, name: str):
-        """Replay graph `name`, counting the launches it makes outside its
-        regions; returns its output."""
+        """Replay graph `name`; returns its output."""
         self.graphs[name].replay()
         self.replays[name] += 1
-        _count(self.kernels[name])
         return self.outs[name]
-
-    def count_regions(self, name: str, ran: dict) -> None:
-        """Count the launches inside the regions of graph `name`'s last
-        replay that ran (`ran`: region name -> whether it ran, or how many
-        of its nodes' bodies ran, from the flags read after the replay)."""
-        for region, times in ran.items():
-            if times:
-                _count([n * int(times) for n in self.region_kernels[name][region]])
 
     def run(self, name: str, fn):
         """Replay graph `name`; without one, run `fn()` eagerly and (on the
-        card) capture it after.  For a graph without regions."""
+        card) capture it after."""
         if name in self.graphs:
             return self.replay(name)
         out = fn()
         if self.on_card:
             self.capture(name, fn)
         return out
-
-
-def _count(launches: list[int]) -> None:
-    for w, n in zip(KERNEL_WRAPPERS, launches):
-        w.launches += n
 
 
 # the frame graph's warm-ups run in this process, by (device, configuration,
@@ -267,13 +213,12 @@ class FrameGraph:
     `step` runs a frame and returns its `FrameInfo`."""
 
     # the flags of the frame's one host read, before its device stamps: the
-    # scan-to-map solve's iterations (the bodies of its `mapsolve` nodes
-    # that ran) and the pose graph's node count after the frame
+    # last is the pose graph's node count after the frame
     FLAGS = ("skip", "has_prev", "is_keyframe", "sc_found", "loop_found", "compacted",
-             "map_iters", "num_nodes")
+             "num_nodes")
 
-    # the frame graph's conditional regions that hold hand kernels, counted
-    # where the flags read after a replay says they ran
+    # the frame graph's conditional regions that `last_flags` reports,
+    # besides the PGO's buckets
     REGIONS = ("fallback", "keyframe", "compact", "verify", "accept", "rebuild")
     # the keyframe branch's regions, run once eagerly before the capture
     KEYFRAME_REGIONS = ("compact", "verify", "accept", "rebuild")
@@ -418,10 +363,9 @@ class FrameGraph:
             spans.mark("frame", True)
         b = self._bout
         flags = torch.stack([skip, has_prev, is_kf, b.sc_found, b.loop_found, b.compacted])
-        n = len(self.FLAGS) - 2
+        n = len(self.FLAGS) - 1
         self._read[:n].copy_(flags)
-        self._read[n].copy_(out.map_iterations)
-        self._read[n + 1].copy_(self.state.backend.graph.num_nodes)
+        self._read[n].copy_(self.state.backend.graph.num_nodes)
         return fr, out, self._read
 
     def _warm_up(self, fr: slam.FrontOutput, out: slam.SlamOutput) -> None:
@@ -479,7 +423,7 @@ class FrameGraph:
         with rec.span("graph.read"):
             read = read.tolist()        # the frame's one host read
         with rec.span("graph.unpack"):
-            *flags, map_iters, nodes = read[:len(self.FLAGS)]
+            *flags, nodes = read[:len(self.FLAGS)]
             skip, has_prev, is_kf, found, accept, compacted = map(bool, flags)
             ran = {"fallback": skip and has_prev, "keyframe": is_kf,
                    "compact": compacted, "verify": found, "accept": accept,
@@ -487,10 +431,6 @@ class FrameGraph:
             solved = accept and self.cfg.loop.online_pgo
             size = posegraph.bucket(nodes, self.cfg.loop.max_keyframes)
             ran.update({r: solved and r == f"pgo.{size}" for r in self._pgo_regions})
-            if replayed:
-                self.segments.count_regions("frame", {**ran, mapsolve.REGION: map_iters})
-                if solved:
-                    posegraph.solves[size] += 1
             self.last_flags = ran
             out = out._replace(host=slam.HostFlags(skip, has_prev, is_kf))
             self.last_output = out
@@ -503,8 +443,7 @@ class FrameGraph:
             if key not in warmups:
                 self._warm_up(fr, out)
                 warmups[key] = self.warmup_s
-            self.segments.capture("frame", self._frame,
-                                  self.REGIONS + self._pgo_regions + (mapsolve.REGION,))
+            self.segments.capture("frame", self._frame)
             self.calibrate()
         return info
 
@@ -513,8 +452,8 @@ class BatchedStepGraph:
     """B sessions' frames (`slam.slam_step_batched`) through one replayed
     graph: `front`, the fallback region when any session's flags say `skip
     & has_prev` (solved on all B and kept where they say so,
-    `slam._fallback_batched`), `back`; then the flags read ((3, B) and the
-    scan-to-map solve's iterations, the step's one host read).  The
+    `slam._fallback_batched`), `back`; then the (3, B) flags read, the
+    step's one host read.  The
     batched step has no keyframe branch and no log.  `state` is the batched
     `SlamState` of buffers (its sessions seeded `seeds`, as
     `slam.init_batched_state` seeds them), `gen` a tuple of B generators,
@@ -555,22 +494,20 @@ class BatchedStepGraph:
         self._fallback_ran = True
         donate(self._fb, slam._fallback_batched(self.state, fr, self.cfg))
 
-    def _back(self, fr: slam.FrontOutput) -> tuple[torch.Tensor, torch.Tensor]:
+    def _back(self, fr: slam.FrontOutput) -> torch.Tensor:
         new, out = slam.back(self.state, fr, self._fb, self._ground_u, None, self.cfg)
         donate(self.state, new)
         raw, self._layout = pack_info(out)
-        return raw, out.map_iterations
+        return raw
 
     def _step(self) -> tuple[slam.FrontOutput, torch.Tensor, torch.Tensor]:
         """`front`, the fallback region (when any session takes it), `back`;
-        the packed output and what the host reads: the (3, B) flags, then
-        the scan-to-map solve's iterations (its slowest session's)."""
+        the packed output and what the host reads, the (3, B) flags."""
         fr = self._front()
         with graph_cond.when((fr.flags[0] & fr.flags[1]).any(), "fallback") as taken:
             if taken:
                 self._fallback(fr)
-        raw, its = self._back(fr)
-        return fr, raw, torch.cat([fr.flags.flatten().to(torch.int32), its.amax()[None]])
+        return fr, self._back(fr), fr.flags
 
     def step(self, xyz: torch.Tensor, inten: torch.Tensor, timestamps,
              ground_u: torch.Tensor | None = None) -> slam.SlamOutput:
@@ -591,16 +528,11 @@ class BatchedStepGraph:
 
         replayed = "step" in self.segments.graphs
         fr, raw, read = self.segments.replay("step") if replayed else self._step()
-        *flags, map_iters = read.tolist()       # the one host read
-        B = len(flags) // 3
-        host = [slam.HostFlags(*map(bool, flags[b::B])) for b in range(B)]
-        fell_back = any(h.skip and h.has_prev for h in host)
-        if replayed:
-            self.segments.count_regions("step", {"fallback": fell_back,
-                                                 mapsolve.REGION: map_iters})
+        flags = read.tolist()       # the one host read
+        host = [slam.HostFlags(*f) for f in zip(*flags)]
         out = unpack_info(raw.clone(), self._layout)._replace(host=host)
         if not replayed and self.segments.on_card:
             if not self._fallback_ran:
                 warm_up(lambda: slam._fallback_batched(self.state, fr, self.cfg), self.state)
-            self.segments.capture("step", self._step, ("fallback", mapsolve.REGION))
+            self.segments.capture("step", self._step)
         return out

@@ -404,7 +404,7 @@ def evict_policy(m: grid_hash.VoxelHashMap, center: torch.Tensor, radius: float,
     if not cond:
         return grid_hash.evict_far(m, center, radius, when=over)
     batched = over.dim() > 0
-    with graph_cond.when(over.any() if batched else over, "evict", kernels=False) as taken:
+    with graph_cond.when(over.any() if batched else over, "evict") as taken:
         if taken:
             kept = grid_hash.evict_far(m, center, radius, when=over if batched else None)
             for buf, v in zip(m, kept):

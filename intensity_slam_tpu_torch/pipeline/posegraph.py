@@ -23,7 +23,6 @@ their inputs untouched.
 
 from __future__ import annotations
 
-import collections
 from typing import NamedTuple
 
 import torch
@@ -439,10 +438,6 @@ def _take_best(poses: Pose, cands: Pose, costs: torch.Tensor) -> Pose:
 # is the same whether or not the padding is factored.
 BUCKET_MIN = 128
 
-# solves by bucket size: the eager ones counted here, a replayed frame
-# graph's from its flags read (`pipeline.frame_graph.FrameGraph`)
-solves: collections.Counter = collections.Counter()
-
 
 def buckets(max_nodes: int) -> tuple[int, ...]:
     """The node counts a graph of `max_nodes` slots is solved at: the powers
@@ -479,13 +474,6 @@ def _leading(g: PoseGraph, n: int) -> PoseGraph:
                       loop_j=torch.clamp(g.loop_j, 0, n - 1))
 
 
-def _count(size: int, device) -> None:
-    """Count a solve at `size` run eagerly (not under capture, not a forced
-    warm-up's)."""
-    if not graph_cond.capturing(device) and not graph_cond.warming():
-        solves[size] += 1
-
-
 def optimize(
     g: PoseGraph,
     gn_iters: int = 8,
@@ -518,10 +506,8 @@ def optimize(
               drift_rate=drift_rate, drift_rot_rate=drift_rot_rate,
               loop_active=loop_active)
     K = g.node_valid.shape[0]
-    dev = g.node_valid.device
     sizes = buckets(K)
     if len(sizes) == 1:
-        _count(K, dev)
         return g._replace(poses=_solve(g, **kw))
     q, t = g.poses.q.clone(), g.poses.t.clone()
     lo = 0
@@ -529,7 +515,6 @@ def optimize(
         on = (g.num_nodes > lo) & (g.num_nodes <= b) if lo else g.num_nodes <= b
         with graph_cond.when(on, f"pgo.{b}") as taken:
             if taken:
-                _count(b, dev)
                 new = _solve(_leading(g, b), **kw)
                 q[:b].copy_(new.q)
                 t[:b].copy_(new.t)
@@ -659,7 +644,7 @@ def consistent_loop_mask(
     S = index.put(torch.zeros((L,), dtype=torch.bool, device=dev), pivot, torch.any(valid))
     grew = torch.any(valid)     # the clique grew at the last step
     for _ in range(L - 1):
-        with graph_cond.when(grew, "pcm", kernels=False) as taken:
+        with graph_cond.when(grew, "pcm") as taken:
             if taken:
                 with_all = torch.all(torch.where(S[None, :], Cmat, True), dim=1)
                 cand = valid & (~S) & with_all

@@ -45,19 +45,6 @@ first and last nodes of the body: a no-op unless a frame graph is stamping
 and the region is one of `spans.DEVICE` (the solvers' iterations, the PCM
 vote's steps and the eviction are not).
 
-**Kernel counts.**  A capture records the hand kernels' launches without
-making them, and a graph owner adds them back on every replay
-(`pipeline.frame_graph.Segments`).  Inside a region they happen only on the
-replays that take it, so `when` keeps, by region name, the launches
-captured inside each region outside the regions nested in it (`recorded`;
-a node's own handle kernel counts in the region around the node), and the
-nodes of each region (`nodes`: a loop's iterations open a node each under
-one name), for the owner to add a node's share for each body that the host
-learns ran.  A region opened
-with `kernels=False` (a solver's iteration, a PCM growth step, whose count
-the host never reads) raises at capture if a hand kernel was captured
-inside it.  `set_handle.launches` counts the handle kernel.
-
 The library is compiled from `csrc/graph_cond.cu` at first use
 (`utils.nvcc`) into `intensity_slam_tpu_torch/_build/libisl_graph_cond.so`.
 """
@@ -73,7 +60,6 @@ import weakref
 
 import torch
 
-from ..ops import eigsym, mapsolve, pallas_nn, svd3
 from . import nvcc, spans
 from .tree import clone_state, donate
 
@@ -89,13 +75,10 @@ _lib = None
 _captures: list = []    # the graphs being captured through `capture`
 _body_streams: list = []    # one a nesting depth
 _depth = 0
-_open: list = []        # launches of the regions nested in each open region
 _forced: dict = {}      # region name -> its seconds' dict, while `forcing`
 _timing: list = []      # seconds of the regions nested in each forced one
 
 ran: collections.Counter = collections.Counter()     # blocks run on a host read
-recorded: dict[str, list[int]] = {}     # launches captured in each region
-nodes: collections.Counter = collections.Counter()   # nodes captured by region
 
 
 def build(verbose: bool = False) -> str:
@@ -129,21 +112,6 @@ def set_handle(pred: torch.Tensor, body_stream: torch.cuda.Stream) -> None:
     if rc != 0:
         raise RuntimeError("opening a conditional node failed: "
                            + lib.isl_cond_error_string(rc).decode())
-    set_handle.launches += 1
-
-
-set_handle.launches = 0
-
-# the hand kernels' wrappers (or their module), each with its `launches`
-# count (the handle kernel last)
-KERNEL_WRAPPERS = (eigsym.eigh, eigsym.eigvalsh, pallas_nn.pack_targets,
-                   pallas_nn.nearest_neighbor_packed, svd3.svd3, mapsolve, spans.stamp,
-                   set_handle)
-
-
-def launch_counts() -> list[int]:
-    """The wrappers' launch counts, in `KERNEL_WRAPPERS` order."""
-    return [w.launches for w in KERNEL_WRAPPERS]
 
 
 def capturing(device) -> bool:
@@ -206,7 +174,7 @@ def _body(pred: torch.Tensor):
 
 
 @contextlib.contextmanager
-def when(pred: torch.Tensor, name: str, kernels: bool = True):
+def when(pred: torch.Tensor, name: str):
     """Guard the block by the 0-d bool `pred` (see the module docstring);
     yields whether the block is to run."""
     if pred.dtype != torch.bool or pred.dim() != 0:
@@ -226,24 +194,9 @@ def when(pred: torch.Tensor, name: str, kernels: bool = True):
             spans.mark(name, True)
         return
     with _body(pred):
-        before = launch_counts()
-        _open.append([0] * len(before))
         spans.mark(name, False)
-        try:
-            yield True
-            spans.mark(name, True)
-        finally:
-            nested = _open.pop()
-        inside = [a - b for a, b in zip(launch_counts(), before)]
-    if _open:
-        _open[-1] = [t + n for t, n in zip(_open[-1], inside)]
-    own = [n - m for n, m in zip(inside, nested)]
-    if any(own) and not kernels:
-        raise RuntimeError(f"hand kernels captured inside region {name!r}, whose "
-                           f"replays the host does not count: {own}")
-    total = recorded.get(name, [0] * len(own))
-    recorded[name] = [t + n for t, n in zip(total, own)]
-    nodes[name] += 1
+        yield True
+        spans.mark(name, True)
 
 
 def cond(pred: torch.Tensor, name: str, fn, default):
@@ -270,12 +223,6 @@ def forcing(names, seconds: dict):
     finally:
         _forced.clear()
         _forced.update(saved)
-
-
-def warming() -> bool:
-    """Whether regions are being forced (`forcing`): a block that runs now
-    is a warm-up's, not a step's."""
-    return bool(_forced)
 
 
 @contextlib.contextmanager

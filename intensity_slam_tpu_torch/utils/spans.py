@@ -65,9 +65,6 @@ with their parents and frame identifiers; `self_times` gives each span's
 duration minus the time its child spans cover; `idle_by_phase` sums that
 idle by the innermost host phase that covers each part of it.  The ring
 holds the newest `capacity` frames.
-
-`stamp.launches` counts the stamp kernel's launches on the card (it is one
-of `graph_cond.KERNEL_WRAPPERS`, so a replay counts the stamps it holds).
 """
 
 from __future__ import annotations
@@ -170,10 +167,6 @@ def stamp(buf: torch.Tensor, slot: int, clear_from: int | None = None) -> None:
     _check(_library().isl_stamp_launch(buf.data_ptr(), slot, clear, n,
                                        torch.cuda.current_stream(buf.device).cuda_stream),
            "stamp_kernel")
-    stamp.launches += 1
-
-
-stamp.launches = 0
 
 
 class Span(NamedTuple):

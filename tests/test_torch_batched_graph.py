@@ -13,8 +13,8 @@ do not), four frames:
   `is_keyframe`, `num_good`, `ground_ok` equal, poses at
   tests/test_torch_multisession.py's tolerances;
 - its segments run under the host-read guard of
-  tests/test_torch_frame_graph.py with the solver in its fixed form, as a
-  capture runs them, and the step reads the host once a frame: the flags'
+  tests/test_torch_frame_graph.py with the solver in its conditional form,
+  as a capture runs them, and the step reads the host once a frame: the flags'
   `tolist`.
 """
 
@@ -112,7 +112,7 @@ def test_only_the_flags_read_reads_the_host(runs, monkeypatch):
     drawing them too."""
     tcfg = runs["tcfg"]
     monkeypatch.setattr(solver, "solve_pose",
-                        functools.partial(solver.solve_pose, fixed=True))
+                        functools.partial(solver.solve_pose, cond=True))
     graph = frame_graph.BatchedStepGraph(tcfg, range(B), "cpu")
     ran = []
     for name in ("_front", "_fallback", "_back"):

@@ -7,7 +7,8 @@ eigenvalues, diagonal, off diagonal by 1e-30, graded over 12 decades, zero:
 zeros out); a matrix's bits the same alone and at three places in a batch
 of others (1024; 8192 for the 3x3, packed 8 a warp; 8 for the 6x6: the
 batched sessions' solve) and over ten launches; both kernels captured into
-a CUDA graph and replayed, bit-equal to eager.  Marked `cuda`: a CUDA
+a CUDA graph and replayed, bit-equal to eager, each replay one launch of
+`jacobi_kernel` in its trace.  Marked `cuda`: a CUDA
 kernel has no CPU mode, so these skip where there is no card.  This file
 imports no JAX, so it also runs on the card's machine:
 
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from intensity_slam_tpu_torch.ops import eigsym
+from kernel_trace import launched
 from test_torch_eigsym_model import adversarial
 
 torch.set_num_threads(1)
@@ -83,10 +85,9 @@ def test_cuda_kernel_replays_from_a_graph():
     eigsym.eigh(a)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    before = eigsym.eigh.launches
     with torch.cuda.graph(g):
         w, v = eigsym.eigh(a)
-    assert eigsym.eigh.launches == before + 1
+    assert launched(g.replay, ["jacobi_kernel"]) == {"jacobi_kernel": 1}
     a.copy_(_spd(256, 3, 8.0, seed=1).float().cuda())
     g.replay()
     torch.cuda.synchronize()
@@ -161,14 +162,12 @@ def test_cuda_kernels_replay_bit_equal_to_eager(vectors):
     _need_card()
     n = 3 if vectors else 6
     a = _spd(256, n, 8.0).float().cuda()
-    counter = eigsym.eigh if vectors else eigsym.eigvalsh
     _run(a, vectors)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    before = counter.launches
     with torch.cuda.graph(g):
         out = _run(a, vectors)
-    assert counter.launches == before + 1
+    assert launched(g.replay, ["jacobi_kernel"]) == {"jacobi_kernel": 1}
     a.copy_(_spd(256, n, 8.0, seed=1).float().cuda())
     g.replay()
     torch.cuda.synchronize()
@@ -177,13 +176,11 @@ def test_cuda_kernels_replay_bit_equal_to_eager(vectors):
 
 def test_cpu_tensors_take_the_plain_version():
     a = _spd(16, 3, 4.0)
-    launches = eigsym.eigh.launches, eigsym.eigvalsh.launches
     w, v = eigsym.eigh(a)
     pw, pv = torch.linalg.eigh(a)
     assert torch.equal(w, pw) and torch.equal(v, pv)
     assert torch.equal(eigsym.eigvalsh(_spd(4, 6, 4.0)),
                        torch.linalg.eigvalsh(_spd(4, 6, 4.0)))
-    assert (eigsym.eigh.launches, eigsym.eigvalsh.launches) == launches
 
 
 def test_kernel_route_refuses_what_it_does_not_take():

@@ -9,9 +9,9 @@ same in-place copies it captures on the card:
   RANSAC draws drawn from the state's generator in both);
 - every segment runs under a host-read guard (`Tensor.__bool__`, `item`,
   `tolist`, `__int__`, `__float__`, `numpy`, `nonzero`, `torch.nonzero` and
-  `torch.unique` raise), with the solver in its fixed-iteration form, as a
-  capture runs it: the CPU's proxy for capturability; and gives the same
-  results;
+  `torch.unique` raise), with the solver in its conditional form, as a
+  capture runs it (each node's test read on the host, which the guard does
+  not see): the CPU's proxy for capturability; and gives the same results;
 - `FrameInfo` stays valid across frames, and `snapshot()` does not move
   with the state.
 
@@ -139,7 +139,7 @@ def _guarded(fn):
 def test_segments_run_under_the_host_read_guard(runs, monkeypatch):
     cfg, xyz, inten = runs["cfg"], runs["xyz"], runs["inten"]
     monkeypatch.setattr(solver, "solve_pose",
-                        functools.partial(solver.solve_pose, fixed=True))
+                        functools.partial(solver.solve_pose, cond=True))
     fg = frame_graph.FrameGraph(cfg, "cpu", seed=3)
     ran = []
     for name in ("_front", "_fallback", "_back", "_log"):
@@ -147,7 +147,7 @@ def test_segments_run_under_the_host_read_guard(runs, monkeypatch):
         setattr(fg, name, lambda *a, _seg=seg, _n=name: ran.append(_n) or _seg(*a))
     infos = [fg.step(xyz[k], inten[k], 0.1 * k) for k in range(FRAMES)]
     assert {"_front", "_fallback", "_back", "_log"} <= set(ran)
-    # the fixed-iteration solves are bit-equal to the early-exit ones
+    # the conditional solves are bit-equal to the early-exit ones
     assert _same_state(runs["eager"][0], fg.state)
     for a, b in zip(runs["eager"][1], infos):
         assert _same_info(a, b)

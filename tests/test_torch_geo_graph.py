@@ -7,7 +7,7 @@ small_test_config:
 - `run_sequence` (through `GeoStepGraph`) is bit-equal to a loop of the
   eager `geo_slam_step`, in every output and in the final state;
 - the step runs under the host-read guard of
-  tests/test_torch_frame_graph.py, with the solver in its fixed-iteration
+  tests/test_torch_frame_graph.py, with the solver in its conditional
   form, as a capture runs it, and gives the same bits;
 - `snapshot()` does not move with the state, and `adopt` of a snapshot
   continues as the eager loop does;
@@ -92,7 +92,7 @@ def test_run_sequence_bit_equal_to_eager_steps(runs):
 def test_step_runs_under_the_host_read_guard(runs, monkeypatch):
     tcfg, xyz, inten = runs["tcfg"], runs["xyz"], runs["inten"]
     monkeypatch.setattr(solver, "solve_pose",
-                        functools.partial(solver.solve_pose, fixed=True))
+                        functools.partial(solver.solve_pose, cond=True))
     graph = TG.GeoStepGraph(tcfg, "cpu")
     step, ran = graph._step, []
 
@@ -104,7 +104,7 @@ def test_step_runs_under_the_host_read_guard(runs, monkeypatch):
     graph._step = guarded
     gouts = [graph.step(xyz[k], inten[k]) for k in range(T)]
     assert len(ran) == T
-    # the fixed-iteration solves are bit-equal to the early-exit ones
+    # the conditional solves are bit-equal to the early-exit ones
     assert _same(runs["eager"][0], graph.state)
     for a, b in zip(runs["eager"][1], gouts):
         assert _same(a, b)

@@ -3,12 +3,15 @@
 host:
 
 - `solver.solve_pose(..., cond=True)` (a node an iteration, its body one
-  iteration of the frozen form writing the loop's state in place) is
-  bit-equal to the early-exit loop in every `SolveResult` field, over
-  tests/test_torch_solver_fixed.py's cases in float32 and float64, batched
-  included; it runs as many bodies as the early exit runs iterations (their
-  most over a batch), and its state stays in the buffers made before the
-  first node;
+  iteration that keeps a solve that met its test frozen, writing the loop's
+  state in place) is bit-equal to the early-exit loop in every
+  `SolveResult` field, in float32 and float64, for a solve that stops after
+  two iterations, one that reaches `iters`, one that stops on rejected
+  steps, and a batch of three sessions, one of them converging after two
+  iterations while the others go on; it runs as many bodies as the early
+  exit runs iterations (their most over a batch), reads the host only for
+  its nodes' tests (which stand for the nodes' own on the card), and its
+  state stays in the buffers made before the first node;
 - the capacity policy under `when` (`mapping.evict_policy(..., cond=True)`)
   gives the masked pass's map, over and under the threshold, one map and a
   batch;
@@ -18,11 +21,7 @@ host:
   `fused_step` and `slam_step_batched` loops over corridor frames with
   keyframes and textureless skips; the fallback region runs exactly on the
   `skip & has_prev` frames (any session's, in a batch), the keyframe region
-  exactly on the keyframes;
-- a capture's launch bookkeeping (`frame_graph.Segments`: the hand kernels'
-  launches recorded outside and inside each region, a nested region's apart
-  from the region around it) adds up, frame by frame, to what the eager
-  frame launches, with the fallback taken and without, keyframes included.
+  exactly on the keyframes.
 
 No JAX: the early-exit loop, `fused_step` and `slam_step_batched` are held
 to the reference by tests/test_torch_{solver,fused,multisession}.py."""
@@ -36,14 +35,13 @@ import torch
 
 from intensity_slam_tpu_torch import config
 from intensity_slam_tpu_torch.io import synthetic
-from intensity_slam_tpu_torch.ops import eigsym, grid_hash, projection, solver
-from intensity_slam_tpu_torch.pipeline import frame_graph, fused, mapping
+from intensity_slam_tpu_torch.ops import grid_hash, projection, solver
+from intensity_slam_tpu_torch.pipeline import frame_graph, mapping
 from intensity_slam_tpu_torch.pipeline import slam as TS
-from intensity_slam_tpu_torch.utils import graph_cond
+from intensity_slam_tpu_torch.utils import graph_cond, se3
 from intensity_slam_tpu_torch.utils.se3 import Pose
 from test_torch_frame_graph import FRAMES, _eager, _frames, _same_info, _same_state, \
     host_read_guard
-from test_torch_solver_fixed import CASES, _fields, _points, _problem
 
 torch.set_num_threads(1)
 
@@ -58,20 +56,92 @@ def cond_forms(monkeypatch):
 
 # ---- the solver ---------------------------------------------------------------
 
+# (seed, point noise, motion scale, iters, what stops the early-exit loop);
+# a batch has a tuple of seeds, noises and scales, one a session
+CASES = {
+    "two_iterations": (1, 0.01, 0.0, 20),
+    "reaches_iters": (2, 0.05, 4.0, 3),
+    "rejected_steps": (0, 0.05, 1.0, 20),
+    "batched": ((1, 2, 3), (0.01, 0.05, 0.02), (0.0, 1.0, 2.0), 20),
+}
+G = 64
+
+
+def _points(seed, noise, scale):
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(G, 3)) * 3
+    xi = np.concatenate([rng.normal(size=3) * 0.1 * scale,
+                         rng.normal(size=3) * 0.5 * scale])
+    dst = (se3.transform_points(se3.se3_exp(torch.tensor(xi)), torch.tensor(src)).numpy()
+           + rng.normal(size=(G, 3)) * noise)
+    return src, dst
+
+
+def _problem(case, dtype):
+    seed, noise, scale, iters = CASES[case]
+    if case == "batched":
+        pts = [_points(*p) for p in zip(seed, noise, scale)]
+        src, dst = np.stack([p[0] for p in pts]), np.stack([p[1] for p in pts])
+    else:
+        src, dst = _points(seed, noise, scale)
+    t = lambda a: torch.tensor(a, dtype=dtype)
+    fn = solver.point_to_point(t(src), t(dst), t(np.ones(src.shape[:-1])))
+    if case == "rejected_steps":
+        # the Jacobian's sign flipped: every step goes uphill and is rejected
+        jac = fn.jacobian
+        fn.jacobian = lambda p: -jac(p)
+    return fn, iters
+
+
+def _fields(res):
+    return {"pose.q": res.pose.q, "pose.t": res.pose.t,
+            **{f: getattr(res, f) for f in res._fields if f != "pose"}}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("case", list(CASES))
 def test_conditional_solve_bit_equal_to_early_exit(case, dtype):
+    """Under the host-read guard of tests/test_torch_frame_graph.py the
+    conditional form reads nothing but its nodes' tests (through
+    `graph_cond`'s own host read, which stands for the node's test on the
+    card and which the guard does not patch), runs a body an iteration of
+    the early exit and equals it field by field."""
     fn, iters = _problem(case, dtype)
     lead = (len(CASES[case][0]),) if case == "batched" else ()
     p0 = Pose.identity(lead, dtype=dtype, device="cpu")
     early = solver.solve_pose(p0, fn, iters=iters)
     graph_cond.ran.clear()
-    cond = solver.solve_pose(p0, fn, iters=iters, cond=True)
+    with host_read_guard():
+        cond = solver.solve_pose(p0, fn, iters=iters, cond=True)
     assert graph_cond.ran["solve"] == int(early.iterations.max())
     for name, a in _fields(early).items():
         b = _fields(cond)[name]
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.equal(a, b), (name, a, b)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_early_exit_stops_as_each_case_says(case):
+    """Each case stops the early-exit loop as its name says, and the loop
+    reads the host for its test (which the host-read guard sees)."""
+    fn, iters = _problem(case, torch.float32)
+    lead = (len(CASES[case][0]),) if case == "batched" else ()
+    p0 = Pose.identity(lead, device="cpu")
+    early = solver.solve_pose(p0, fn, iters=iters)
+    if case == "batched":
+        # one session stops after two iterations, the batch before `iters`
+        # (so the conditional form runs bodies with a session frozen)
+        its = early.iterations.tolist()
+        assert its[0] == 2 and min(its[1:]) > 2 and max(its) < iters, its
+    elif case == "two_iterations":
+        assert int(early.iterations) == 2 and int(early.rejections) == 0
+    elif case == "reaches_iters":
+        assert int(early.iterations) == iters and bool(early.grad_norm > 1.0)
+    else:
+        assert int(early.rejections) == 3 and int(early.iterations) == 3
+    with pytest.raises(AssertionError, match="host read"):
+        with host_read_guard():
+            solver.solve_pose(p0, fn, iters=iters)
 
 
 def test_conditional_solve_keeps_its_state_in_place(monkeypatch):
@@ -82,8 +152,8 @@ def test_conditional_solve_keeps_its_state_in_place(monkeypatch):
     writes, copy = [], torch.Tensor.copy_
 
     @contextlib.contextmanager
-    def body_writes(pred, name, kernels=True):
-        with graph_cond_when(pred, name, kernels) as taken:
+    def body_writes(pred, name):
+        with graph_cond_when(pred, name) as taken:
             writes.append([])
             yield taken
 
@@ -217,78 +287,6 @@ def test_batched_graph_conditional_form_bit_equal_to_eager(batch_streams, cond_f
         assert torch.equal(g.get_state(), h.get_state())
 
 
-# ---- the launch bookkeeping ---------------------------------------------------
-
-class _Graph:
-    """Stands for `torch.cuda.CUDAGraph` where a capture only records."""
-
-    def replay(self):
-        pass
-
-
-def test_region_launches_add_up_to_the_eager_frame(corridor, monkeypatch):
-    """The eigensolvers' plain versions count as launches; a capture (each
-    node's body run once in Python, as the capture records it, the graph
-    itself a stand-in) fills `Segments`' bookkeeping; each frame's eager run
-    (the regions decided on the host) launches what a replay of that frame
-    is counted: the launches outside the regions, plus those of each region
-    (the fallback, the keyframe branch and the regions inside it) where the
-    flags say it ran."""
-    cfg, xyz, inten, _ = corridor
-    for wrapper, name in ((eigsym.eigh, "eigh_plain"), (eigsym.eigvalsh, "eigvalsh_plain")):
-        plain = getattr(eigsym, name)
-
-        def counted(a, _plain=plain, _w=wrapper):
-            _w.launches += 1
-            return _plain(a)
-        monkeypatch.setattr(eigsym, name, counted)
-    capture_mode = [False]
-
-    @contextlib.contextmanager
-    def body(pred):
-        graph_cond.set_handle.launches += 1
-        yield
-
-    monkeypatch.setattr(graph_cond, "capturing", lambda device: capture_mode[0])
-    monkeypatch.setattr(graph_cond, "_body", body)
-    monkeypatch.setattr(graph_cond, "capture",
-                        lambda g, pool: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-
-    fg = frame_graph.FrameGraph(cfg, "cpu", seed=3)
-    eager, flags = [], []
-    for k in range(FRAMES):
-        before = graph_cond.launch_counts()
-        fg.step(xyz[k], inten[k], 0.1 * k)
-        eager.append([a - b for a, b in zip(graph_cond.launch_counts(), before)])
-        flags.append(dict(fg.last_flags))
-    capture_mode[0] = True
-    fg.segments.capture("frame", fg._frame, fg.REGIONS)
-    capture_mode[0] = False
-    outside, inside = fg.segments.kernels["frame"], fg.segments.region_kernels["frame"]
-    hand = len(graph_cond.KERNEL_WRAPPERS) - 1      # the handle kernel is last
-    for k, (launched, ran) in enumerate(zip(eager, flags)):
-        counted = [o + sum(inside[r][i] for r in ran if ran[r]) for i, o in enumerate(outside)]
-        assert counted[:hand] == launched[:hand], (k, ran, counted, launched)
-    assert any(f["fallback"] and not f["keyframe"] for f in flags)
-    assert any(not f["fallback"] and not f["keyframe"] for f in flags)
-    assert any(f["keyframe"] for f in flags)
-    # the solves a replay opens a node for: odometry's, mapping's, both
-    # capacity policies', the two regions; the fallback's solves inside it
-    oc, gc, mc, lc = cfg.odometry, cfg.geometric, cfg.mapping, cfg.loop
-    assert outside[hand] == oc.gn_iters + mc.gn_iters + 2 + 2
-    assert inside["fallback"][hand] == gc.odom_outer_iters * gc.odom_gn_iters
-    assert inside["fallback"][1] > 0
-    # the keyframe region opens compact, verify and rebuild; verify the
-    # PCM vote's L - 1 growth steps and accept; none holds an eigensolver
-    assert inside["keyframe"][hand] == 3
-    assert inside["verify"][hand] == 256 - 1 + 1
-    assert all(inside[r][:2] == [0, 0] for r in fg.REGIONS if r != "fallback")
-    assert lc.use_pcm and mc.rebuild_on_loop
-
-
 # ---- on the card --------------------------------------------------------------
 
 def _need_card():
@@ -299,7 +297,7 @@ def _need_card():
 @pytest.mark.cuda
 def test_cuda_replayed_solve_follows_each_problem():
     """One solve captured as a chain of If nodes (20 at most) and replayed
-    on the points of `test_torch_solver_fixed.py`'s one-session cases, the
+    on the points of `CASES`' one-session cases, the
     last with its Jacobian's sign flipped (rejected steps): each replay
     bit-equal to its eager early exit, iterations included."""
     _need_card()

@@ -4,7 +4,9 @@ nothing of JAX and nothing of the JAX package (not even its JAX-free
 modules), and no
 module of the port opens a path under `native/build/`, the JAX package's
 build directory of the native runtime (the port builds its own copy into
-`intensity_slam_tpu_torch/_build/`)."""
+`intensity_slam_tpu_torch/_build/`).  The port's `utils/` imports no layer
+above it (`ops`, `pipeline`, `runtime`, `parallel`, `io`), relatively or
+absolutely, at the top of a module or inside a function."""
 
 import ast
 import pathlib
@@ -22,6 +24,9 @@ FILES = sorted((ROOT / "intensity_slam_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
     ROOT / "tools" / f"{name}.py" for name in TOOLS]
 FORBIDDEN = ("jax", "jaxlib", "intensity_slam_tpu")
+UTILS = sorted(p for p in (ROOT / "intensity_slam_tpu_torch" / "utils").glob("*.py")
+               if p.name != "__init__.py")
+ABOVE_UTILS = ("ops", "pipeline", "runtime", "parallel", "io")
 
 
 def _imported(tree):
@@ -79,3 +84,31 @@ def test_no_path_under_the_reference_build(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [s for s in _path_literals(tree) if "native/build" in s]
     assert not bad, f"{path.name} names {bad}"
+
+
+def _port_layers(tree):
+    """The port's subpackages that a module of `utils/` imports: `from ..x`
+    and `from .. import x` (the port's root, two levels up), and
+    `intensity_slam_tpu_torch.x` absolutely."""
+    root = "intensity_slam_tpu_torch"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                parts = a.name.split(".")
+                if parts[0] == root and len(parts) > 1:
+                    yield parts[1]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 2 or (node.level == 0 and node.module
+                                   and node.module.split(".")[0] == root):
+                parts = (node.module or "").split(".")[0 if node.level else 1:]
+                if parts and parts[0]:
+                    yield parts[0]
+                else:
+                    yield from (a.name for a in node.names)
+
+
+@pytest.mark.parametrize("path", UTILS, ids=lambda p: p.name)
+def test_utils_import_nothing_above_them(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted({m for m in _port_layers(tree) if m in ABOVE_UTILS})
+    assert not bad, f"utils/{path.name} imports the port's {bad}"

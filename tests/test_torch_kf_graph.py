@@ -22,9 +22,7 @@ small_test_config shapes:
     capturability), the solver and the capacity policy in their conditional
     forms; the keyframe, compact, verify, accept and rebuild regions run
     exactly where the flags read after the frame say, and the frame's flags
-    read (the flags, then the regions' device stamps) is its one `tolist`;
-    eagerly, `posegraph.solves` counts one solve an accepted loop, in both
-    the functional loop and the frame graph.
+    read (the flags, then the regions' device stamps) is its one `tolist`.
 """
 
 import contextlib
@@ -270,18 +268,17 @@ def out_and_back():
     mask = projection.detection_mask(cfg.sensor, device="cpu")
     st = fused.init_state(cfg, seed=3, device="cpu")
     infos = []
-    TPG.solves.clear()
     for k in range(FRAMES):
         st, info = fused.fused_step(st, xyz[k], inten[k], 0.1 * k, mask, cfg)
         infos.append(info)
-    return cfg, xyz, inten, st, infos, dict(TPG.solves)
+    return cfg, xyz, inten, st, infos
 
 
 SEGMENTS = ("_front", "_fallback", "_back", "_keyframe", "_log")
 
 
 def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monkeypatch):
-    cfg, xyz, inten, st, infos, _ = out_and_back
+    cfg, xyz, inten, st, infos = out_and_back
     kfs = [k for k, i in enumerate(infos) if bool(i.is_keyframe)]
     loops = [k for k, i in enumerate(infos) if bool(i.loop_found)]
     compacted = [k for k, i in enumerate(infos) if bool(i.compacted)]
@@ -309,7 +306,6 @@ def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monke
 
     monkeypatch.setattr(torch.Tensor, "tolist", counted)
     regions = []
-    TPG.solves.clear()
     for k in range(FRAMES):
         graph_cond.ran.clear()
         reads.clear()
@@ -326,20 +322,7 @@ def test_frame_graph_keyframe_branch_bit_equal_to_fused_step(out_and_back, monke
     for r in ("keyframe", "compact", "verify", "accept", "rebuild"):
         assert sum(t[r] for t in regions) >= 1, (r, regions)
     assert [k for k, t in enumerate(regions) if t["accept"]] == loops
-    # the eager frames' solves, counted once each
-    assert TPG.solves == {cfg.loop.max_keyframes: len(loops)}
     assert [k for k, t in enumerate(regions) if t["compact"]] == compacted
-
-
-def test_solve_counter_counts_each_accepted_loop(out_and_back):
-    """Eagerly `posegraph.solves` counts one solve a loop that
-    `fused_step` accepted, at the graph's one bucket: its 8 slots, at most
-    128, are solved whole."""
-    cfg, _, _, _, infos, solves = out_and_back
-    K = cfg.loop.max_keyframes
-    loops = [k for k, i in enumerate(infos) if bool(i.loop_found)]
-    assert loops and TPG.buckets(K) == (K,) and TPG.regions(K) == ()
-    assert solves == {K: len(loops)}
 
 
 def test_regions_hand_results_on_through_buffers(out_and_back):
@@ -359,7 +342,7 @@ def test_warm_up_forces_the_keyframe_regions(out_and_back, monkeypatch):
     """Before its capture `FrameGraph` runs the keyframe branch once with
     every region forced (each timed into `warmup_s`) on the live state,
     which it leaves untouched."""
-    cfg, xyz, inten, st, _, _ = out_and_back
+    cfg, xyz, inten, st, _ = out_and_back
     fg = frame_graph.FrameGraph(cfg, "cpu", seed=3)
     fg.step(xyz[0], inten[0], 0.0)
     before = fg.snapshot()
@@ -370,8 +353,8 @@ def test_warm_up_forces_the_keyframe_regions(out_and_back, monkeypatch):
     when = graph_cond.when
 
     @contextlib.contextmanager
-    def seen(pred, name, kernels=True):
-        with when(pred, name, kernels) as taken:
+    def seen(pred, name):
+        with when(pred, name) as taken:
             if taken and name in fg.KEYFRAME_REGIONS:
                 forced.append(name)
             yield taken

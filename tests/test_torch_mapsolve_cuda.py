@@ -21,8 +21,9 @@ end a solve away from the plain solve's.
 Besides: a batch bit-equal to its sessions solved one at a time; a solve
 captured as a chain of conditional nodes, replayed twice bit-equal, and on
 other inputs bit-equal to the eager kernels (iterations included); the
-launches counted (two a step, two to start; under capture two in each of
-the `gn_iters` nodes)."""
+kernels counted by name in a trace (an evaluation and a step kernel to
+start and an iteration, eagerly and in a replay, which also runs the
+handle kernel of each of the `gn_iters` nodes)."""
 
 import dataclasses
 import os
@@ -37,6 +38,7 @@ from intensity_slam_tpu_torch.ops import mapsolve, projection, solver
 from intensity_slam_tpu_torch.pipeline import slam
 from intensity_slam_tpu_torch.utils import graph_cond, tree
 from intensity_slam_tpu_torch.utils.se3 import Pose
+from kernel_trace import launched
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +46,7 @@ FRAMES = 10
 PERMUTATIONS = 8
 MAX_REJECT = 3              # the rejections in a row that end a solve
 POSE_TOL_M, QUAT_TOL, COST_TOL = 1e-5, 1e-6, 1e-5
+KERNELS = ("mapsolve_eval_kernel", "mapsolve_step_kernel", "set_handle_kernel")
 FIELDS = ("final_cost", "initial_cost", "iterations", "converged", "min_hessian_eig",
           "damping", "rel_decrease", "rejections", "grad_norm")
 
@@ -216,13 +219,10 @@ def _capture(a, k):
     buffers = tree.clone_state(a)
     mapsolve.solve(*buffers, **k)              # the library loaded, the allocator warm
     g = torch.cuda.CUDAGraph()
-    before = mapsolve.launches
-    graph_cond.recorded.clear()
-    graph_cond.nodes.clear()
     with graph_cond.capture(g, torch.cuda.graph_pool_handle()):
         res = mapsolve.solve(*buffers, **k)
     torch.cuda.synchronize()
-    return g, buffers, res, mapsolve.launches - before
+    return g, buffers, res
 
 
 def _fields(r):
@@ -232,20 +232,19 @@ def _fields(r):
 def test_captured_solve_replays_bit_equal(corridor):
     k = corridor[0][1]
     iters = k["iters"]
-    g, buffers, res, captured = _capture(corridor[1][0], k)
-    # two launches to start, two in each iteration's node
-    assert captured == 2 + 2 * iters
-    assert graph_cond.nodes[mapsolve.REGION] == iters
-    assert graph_cond.recorded[mapsolve.REGION][
-        graph_cond.KERNEL_WRAPPERS.index(mapsolve)] == 2 * iters
+    g, buffers, res = _capture(corridor[1][0], k)
     seen = set()
     for n in (1, 5, 9, 0):
         donor = corridor[n][0]
         for dst, src in zip(tree.leaves(buffers), tree.leaves(donor)):
             dst.copy_(src)
-        before = mapsolve.launches
         eager = mapsolve.solve(*donor, **k)
-        assert mapsolve.launches - before == 2 + 2 * int(eager.iterations)
+        # an evaluation and a step kernel to start and in each iteration
+        # that ran; a replay runs the handle kernel of every node
+        pairs = 1 + int(eager.iterations)
+        assert launched(lambda: mapsolve.solve(*donor, **k), KERNELS) == dict(
+            zip(KERNELS, (pairs, pairs, 0)))
+        assert launched(g.replay, KERNELS) == dict(zip(KERNELS, (pairs, pairs, iters)))
         g.replay()
         torch.cuda.synchronize()
         first = [x.clone() for x in _fields(res)]

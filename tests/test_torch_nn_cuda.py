@@ -1,7 +1,8 @@
 """The CUDA nearest-neighbour kernels (`intensity_slam_tpu_torch/csrc/nn.cu`)
 against their plain PyTorch versions, on the card: packs, indices and
 distances must be identical (every operation in the kernel rounds to nearest
-on its own, and sums run in the plain version's order).  Marked `cuda`: a
+on its own, and sums run in the plain version's order), and the unpacked
+entry launches `pack_kernel` and `nn_packed_kernel` once each.  Marked `cuda`: a
 CUDA kernel has no CPU mode, so these skip where there is no card.  This file
 imports no JAX, so it also runs on the card's machine:
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from intensity_slam_tpu_torch.ops import pallas_nn
+from kernel_trace import launched
 
 # small CPU tensors: one intra-op thread avoids oversubscribing the cores
 # that the parallel test workers share
@@ -59,12 +61,10 @@ def test_cuda_kernel_matches_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     src, tgt, mask = (t.cuda() for t in _case(name))
-    before = (pallas_nn.pack_targets.launches,
-              pallas_nn.nearest_neighbor_packed.launches)
     ki, kd = pallas_nn.nearest_neighbor(src, tgt, mask)
-    assert (pallas_nn.pack_targets.launches,
-            pallas_nn.nearest_neighbor_packed.launches) == (before[0] + 1,
-                                                            before[1] + 1)
+    names = ["pack_kernel", "nn_packed_kernel"]
+    assert launched(lambda: pallas_nn.nearest_neighbor(src, tgt, mask), names) == {
+        "pack_kernel": 1, "nn_packed_kernel": 1}
     pi, pd = pallas_nn.nearest_neighbor_plain(src, tgt, mask)
     torch.cuda.synchronize()
     assert torch.equal(ki, pi)

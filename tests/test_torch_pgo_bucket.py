@@ -66,19 +66,17 @@ def _graph(K: int, n: int, seed: int = 0, stale: bool = True) -> TPG.PoseGraph:
 
 
 def _optimize(g: TPG.PoseGraph):
-    """`optimize` eagerly: (its graph, the bucket regions it ran, its
-    solves by size)."""
+    """`optimize` eagerly: (its graph, the bucket regions it ran)."""
     graph_cond.ran.clear()
-    TPG.solves.clear()
     out = TPG.optimize(g, **_kw())
     K = g.node_valid.shape[0]
-    return out, {r: graph_cond.ran[r] for r in TPG.regions(K)}, dict(TPG.solves)
+    return out, {r: graph_cond.ran[r] for r in TPG.regions(K)}
 
 
 def _check_against_full(g: TPG.PoseGraph, n: int):
     K = g.node_valid.shape[0]
     b = TPG.bucket(n, K)
-    got, ran, solves = _optimize(g)
+    got, ran = _optimize(g)
     want = TPG._solve(g, **_kw())
     np.testing.assert_allclose(got.poses.t[:n].numpy(), want.t[:n].numpy(), atol=1e-4, rtol=0)
     np.testing.assert_allclose(got.poses.q[:n].numpy(), want.q[:n].numpy(), atol=1e-5, rtol=0)
@@ -86,7 +84,6 @@ def _check_against_full(g: TPG.PoseGraph, n: int):
     assert torch.equal(got.poses.t[b:], g.poses.t[b:]) and torch.equal(got.poses.q[b:],
                                                                         g.poses.q[b:])
     assert ran == {r: int(r == f"pgo.{b}") for r in TPG.regions(K)}
-    assert solves == {b: 1}
     return got, want
 
 
@@ -115,8 +112,8 @@ def test_stale_loop_indices_past_the_bucket_change_nothing():
     stale = _graph(384, 200, seed=2)
     clean = _graph(384, 200, seed=2, stale=False)
     assert int(stale.loop_i.max()) == 383 and int(clean.loop_i.max()) < 200
-    a, _, _ = _optimize(stale)
-    b, _, _ = _optimize(clean)
+    a, _ = _optimize(stale)
+    b, _ = _optimize(clean)
     assert torch.equal(a.poses.t, b.poses.t) and torch.equal(a.poses.q, b.poses.q)
 
 
@@ -139,12 +136,11 @@ def test_graph_at_its_slot_count_is_solved_whole(monkeypatch):
         return solved
 
     monkeypatch.setattr(TPG, "_solve", solve)
-    got, ran, solves = _optimize(g)
+    got, ran = _optimize(g)
     assert len(seen) == 1
     assert all(torch.equal(a, b) for a, b in zip(leaves(seen[0]), leaves(g)))
     assert torch.equal(got.poses.t, solved.t) and torch.equal(got.poses.q, solved.q)
     assert ran == {"pgo.128": 0, "pgo.256": 0, "pgo.512": 0, "pgo.1024": 1}
-    assert solves == {1024: 1}
 
 
 @pytest.mark.parametrize("K,sizes", [(8, (8,)), (64, (64,)), (128, (128,)), (129, (128, 129)),
